@@ -22,23 +22,53 @@ nothing of the JAX package. Phases, each printing its own lines:
    padded, boolean mask) plus one call per prefill chunk. Also checks that
    K/V slots outside a sequence's visible range are never read (NaN there
    leaves the output bit-identical).
+3b. batched kernel vs plain — ``paged_attention`` (B3) against
+   ``paged_attention_ref``, same geometry and pages: (d) decode, 64
+   sequences at Tq=1, contexts uniform in 128–4096; (e) verify, 16
+   sequences at Tq=4 (γ=3), contexts 128–4096; (f) a sequential prefill
+   chunk, 1 sequence at Tq=512 from a position ≤ 3584; (g) step (e) with a
+   4096-token window and contexts up to 8192. Same gates, timing and bound
+   as phase 3; table columns past a context point at trash page 0. The
+   library yardstick is one SDPA call over the padded batched view with a
+   boolean mask.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
+4b. path parity — the same model and requests through ``mode="sequential"``
+   (first-token logits within 1e-3), fused + ``commit_horizon=4``, and
+   fused + ``speculate=2`` with a ``TruncatedSelfDraft(1)`` and with a
+   1-layer ``SmallModelDraft``: tokens equal on card and CPU in each, and
+   equal to the card's fused single-step tokens (the stream identity of
+   DESIGN.md §12 and §18); ``execute_multi`` ran on the last three. On the
+   card every committed horizon and speculative round runs under torch's
+   sync debug mode set to raise: no device→host sync before its one copy.
 5. serve — the full 24-layer h2o-danube-1.8b (fp32 weights from a seed)
    serves 16 requests through ``Engine`` + the ``fairbatching`` scheduler +
    the fused ``PagedTransformerExecutor``; every request must finish with
    32 tokens in [0, vocab) and the attention kernel must have launched
    exactly n_layers times per dispatch.
+5b. serving paths — the same model: (i) ``mode="sequential"`` on phase 5's
+   requests; (ii) decode-16: 16 requests at time 0, prompts 256–3072, 64 new
+   tokens, fused + ``commit_horizon=8``; (iii) decode-16 with
+   ``speculate=3``, ``TruncatedSelfDraft(6)`` and ``commit_horizon=4``.
+   Every request finishes with its tokens in [0, vocab); (ii) and (iii)
+   ran multi-step / speculative dispatches; the batched kernel launched
+   n_layers per sequential dispatch, n_layers × horizon per multi-step
+   dispatch and rounds × (γ × draft layers + n_layers) per speculative
+   one, the ragged kernel n_layers per fused dispatch. The share of tokens
+   equal to a fused single-step run of the same requests is reported, not
+   gated (at 24 random-weight layers a near-tie may flip a token).
 
-Lines before the last: one ``{"kernels": [...]}`` JSON object, and the
-card's name and power limit. The last line is
+Lines before the last: one ``{"kernels": [...]}`` JSON object (launches
+summed over every serving phase), and the card's name and power limit.
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -56,10 +86,13 @@ from repro_torch.core import LinearCostModel, make_scheduler  # noqa: E402
 from repro_torch.engine import (Engine, EngineConfig,  # noqa: E402
                                 PagedTransformerExecutor, Request)
 from repro_torch.engine.metrics import summarize  # noqa: E402
+from repro_torch.engine.spec_decode import (  # noqa: E402
+    SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention_ragged)
-from repro_torch.kernels.ref import paged_attention_ragged_ref  # noqa: E402
+    paged_attention, paged_attention_ragged)
+from repro_torch.kernels.ref import (  # noqa: E402
+    paged_attention_ragged_ref, paged_attention_ref)
 from repro_torch.models.weights import init_params  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -245,14 +278,28 @@ def cuda_timer(fn) -> float:
     return a.elapsed_time(b)
 
 
-def poisoned(st: Step):
-    """Copies of the pools with NaN in every slot no row of its sequence
-    may read: before the window's first key and at or past the context."""
+def time_in_turns(timer, kern, plain, library) -> dict:
+    """Median ms of the kernel, its plain version and the library call,
+    timed in turns, over N_TIMED rounds after N_WARMUP."""
+    ts = {"ms": [], "plain_ms": [], "library_ms": []}
+    for i in range(N_WARMUP + N_TIMED):
+        for key, fn in (("ms", kern), ("plain_ms", plain),
+                        ("library_ms", library)):
+            dt = timer(fn)
+            if i >= N_WARMUP:
+                ts[key].append(dt)
+    return {k: statistics.median(v) for k, v in ts.items()}
+
+
+def poisoned(st):
+    """Copies of the pools of ``st`` (a ``Step`` or ``BStep``) with NaN in
+    every slot no row of its sequence may read: before the window's first
+    key and at or past the context — trash page 0 included, where a batched
+    step's table columns past each context point."""
     kp, vp, tables = st.args[1].clone(), st.args[2].clone(), st.args[3]
-    n_pages = tables.shape[1]
-    for s in range(len(st.q_lens)):
-        lo, hi = st.visible(s)
-        kv = torch.arange(n_pages * st.page, device=kp.device)
+    kv = torch.arange(tables.shape[1] * st.page, device=kp.device)
+    for s in range(len(st.ctx)):
+        lo, _ = st.visible(s)
         bad = (kv < lo) | (kv >= st.ctx[s])
         pg = tables[s].long()[kv[bad] // st.page]
         kp[pg, kv[bad] % st.page] = float("nan")
@@ -287,14 +334,7 @@ def check_kernel(st: Step, timer, timed: bool) -> dict:
         raise AssertionError(f"{st.name}/page {st.page}: kernel disagrees "
                              f"with its plain version")
     if timed:
-        ts = {"ms": [], "plain_ms": [], "library_ms": []}
-        for i in range(N_WARMUP + N_TIMED):
-            for key, fn in (("ms", kern), ("plain_ms", plain),
-                            ("library_ms", lib_fn)):
-                dt = timer(fn)
-                if i >= N_WARMUP:
-                    ts[key].append(dt)
-        rec.update({k: statistics.median(v) for k, v in ts.items()})
+        rec.update(time_in_turns(timer, kern, plain, lib_fn))
     return rec
 
 
@@ -305,6 +345,168 @@ def phase_kernels(device, timer) -> list:
             st = make_step(kind, page, device)
             recs.append(check_kernel(st, timer, timed=True))
             _emit("kernel_step", recs[-1])
+            del st
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the batched kernel (B3) against its plain version
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BStep:
+    """One batched attention call: the layout and its device tensors."""
+    name: str
+    tq: int
+    q_starts: list
+    ctx: list
+    window: object
+    page: int
+    args: tuple = ()
+
+    def visible(self, b: int) -> tuple[int, int]:
+        """[lo, hi): the keys any row of sequence b can see."""
+        hi = min(self.ctx[b], self.q_starts[b] + self.tq)
+        lo = 0 if self.window is None else max(
+            0, self.q_starts[b] - self.window + 1)
+        return lo, hi
+
+
+def _blayout(kind: str, rng: np.random.Generator):
+    """(batch, Tq, q_starts, ctx, window, max_ctx) of step d, e, f or g."""
+    if kind == "f_chunk":
+        q0 = int(rng.integers(0, 3584 + 1))
+        return 1, 512, [q0], [q0 + 512], None, 4096
+    b, tq, window, max_ctx = {"d_decode": (64, 1, None, 4096),
+                              "e_verify": (16, 4, None, 4096),
+                              "g_window": (16, 4, 4096, 8192)}[kind]
+    ctx = [int(c) for c in rng.integers(128, max_ctx + 1, b)]
+    return b, tq, [c - tq for c in ctx], ctx, window, max_ctx
+
+
+def make_bstep(kind: str, page: int, device, seed: int = 0) -> BStep:
+    rng = np.random.default_rng(seed)
+    b, tq, q_starts, ctx, window, max_ctx = _blayout(kind, rng)
+    n_pages = -(-max_ctx // page)
+    # distinct pages per sequence, shuffled; the columns past a context
+    # point at trash page 0, as the executor's block tables do
+    tables = (1 + rng.permutation(b * n_pages)).reshape(b, n_pages)
+    for i, c in enumerate(ctx):
+        tables[i, -(-c // page):] = 0
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    pool_shape = (b * n_pages + 1, page, HKV, D)
+    dev = torch.device(device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    args = (randn(b, tq, H, D), randn(*pool_shape), randn(*pool_shape),
+            i32(tables), i32(ctx), i32(q_starts))
+    return BStep(kind, tq, q_starts, ctx, window, page, args)
+
+
+def bstep_bound(st: BStep) -> dict:
+    """As ``step_bound``: each input byte read once (q, the visible K/V
+    rows, the table entries they need, metadata), the output written once;
+    FLOPs of QK and PV over the keys each row sees."""
+    g = H // HKV
+    b = len(st.ctx)
+    keys = flops = pages_read = 0
+    for i in range(b):
+        lo, hi = st.visible(i)
+        keys += max(hi - lo, 0)
+        pages_read += max(-(-hi // st.page) - lo // st.page, 0)
+        for t in range(st.tq):
+            qp = st.q_starts[i] + t
+            k_hi = min(st.ctx[i], qp + 1)
+            k_lo = 0 if st.window is None else max(0, qp - st.window + 1)
+            flops += max(k_hi - k_lo, 0) * HKV * g * D * 4
+    q_bytes = b * st.tq * H * D * 4
+    nbytes = (q_bytes + keys * HKV * D * 4 * 2 + pages_read * 4 + b * 2 * 4
+              + q_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def blibrary_call(st: BStep):
+    """The SDPA yardstick: one call over the padded batched view (the keys
+    each sequence can see, padded to the widest, boolean mask). Gathering
+    is set-up, not timed. Returns (fn, check) as ``library_call``."""
+    import torch.nn.functional as F
+    q, kp, vp, tables = st.args[:4]
+    g, b = H // HKV, len(st.ctx)
+    dev = q.device
+    spans = [st.visible(i) for i in range(b)]
+    width = max(hi - lo for lo, hi in spans)
+    kb = torch.zeros(b, H, width, D, device=dev)
+    vb = torch.zeros_like(kb)
+    mask = torch.zeros(b, 1, st.tq, width, dtype=torch.bool, device=dev)
+    for i, (lo, hi) in enumerate(spans):
+        idx = torch.arange(lo, hi, device=dev)
+        pg = tables[i].long()[idx // st.page]
+        kb[i, :, :hi - lo] = kp[pg, idx % st.page].repeat_interleave(
+            g, 1).transpose(0, 1)
+        vb[i, :, :hi - lo] = vp[pg, idx % st.page].repeat_interleave(
+            g, 1).transpose(0, 1)
+        qp = st.q_starts[i] + torch.arange(st.tq, device=dev)[:, None]
+        m = idx[None] <= qp
+        if st.window is not None:
+            m &= (qp - idx[None]) < st.window
+        mask[i, 0, :, :hi - lo] = m
+    qb = q.transpose(1, 2)                           # (B, H, Tq, D)
+
+    def fn():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
+    def check(out, expect):
+        return float((out.transpose(1, 2) - expect).abs().max())
+
+    return fn, check
+
+
+def check_bkernel(st: BStep, timer) -> dict:
+    """Batched kernel vs plain version on ``st``; times all three."""
+    q, kp, vp, *meta = st.args
+    kern = lambda: paged_attention(q, kp, vp, *meta, window=st.window)
+    plain = lambda: paged_attention_ref(q, kp, vp, *meta, window=st.window)
+    got, want = kern(), plain()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{st.name}/page {st.page}: non-finite output")
+    err = float((got - want).abs().max())
+    kp2, vp2 = poisoned(st)
+    same = torch.equal(
+        paged_attention(q, kp2, vp2, *meta, window=st.window), got)
+    del kp2, vp2
+    lib_fn, lib_check = blibrary_call(st)
+    lib_err = lib_check(lib_fn(), want)
+    rec = {"step": st.name, "page": st.page, "batch": len(st.ctx),
+           "tq": st.tq, "window": st.window, "max_abs_err": err,
+           "poison_ok": same, "library_max_abs_err": lib_err,
+           **bstep_bound(st)}
+    if err > ATOL_KERNEL or not same:
+        _emit("batched_kernel_step", rec)
+        raise AssertionError(f"{st.name}/page {st.page}: batched kernel "
+                             f"disagrees with its plain version")
+    rec.update(time_in_turns(timer, kern, plain, lib_fn))
+    return rec
+
+
+def phase_batched_kernels(device, timer) -> list:
+    recs = []
+    for kind in ("d_decode", "e_verify", "f_chunk", "g_window"):
+        for page in (128, 16):
+            st = make_bstep(kind, page, device)
+            recs.append(check_bkernel(st, timer))
+            _emit("batched_kernel_step", recs[-1])
             del st
             if torch.device(device).type == "cuda":
                 torch.cuda.empty_cache()
@@ -328,23 +530,82 @@ def make_requests(cfg, n: int, prompt_range, new_tokens: int, gap: float,
     return reqs
 
 
+KERNELS = {"paged_attention_ragged": paged_attention_ragged,
+           "paged_attention": paged_attention}
+# launches of each kernel summed over every serving run on the card
+SERVING_LAUNCHES = {name: 0 for name in KERNELS}
+
+
+@dataclasses.dataclass
+class Served:
+    """One serving run: its engine and executor, first-token logits by
+    request, wall seconds, each kernel's launches in the run, and the
+    (horizon, γ) of every multi-step (γ = 0) or speculative dispatch."""
+    eng: Engine
+    ex: PagedTransformerExecutor
+    first: dict
+    wall: float
+    launches: dict
+    multi: list
+
+    @property
+    def tokens(self) -> dict:
+        return {r: list(q.generated_tokens)
+                for r, q in self.eng.requests.items()}
+
+
+def _no_sync(fn):
+    """``fn`` under torch's sync debug mode set to raise: any device→host
+    synchronisation while it runs is an error."""
+    def run(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
 def serve(cfg, params, device, requests, *, page_size, num_pages,
-          max_pages_per_seq, capture_logits=False, max_steps=20_000):
-    """Serve ``requests`` to completion; returns (engine, executor, first
-    logits by request, wall seconds)."""
+          max_pages_per_seq, capture_logits=False, max_steps=20_000,
+          mode="fused", horizon=1, gamma=0, draft=None,
+          check_sync=True) -> Served:
+    """Serve ``requests`` to completion. On the card, with ``check_sync``,
+    every committed horizon and speculative round body runs under torch's
+    sync debug mode set to raise: it may not wait for the device."""
     ex = PagedTransformerExecutor(cfg, params, num_pages=num_pages,
                                   page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
-                                  capture_logits=capture_logits,
+                                  mode=mode, capture_logits=capture_logits,
                                   device=device)
+    if draft is not None:
+        ex.set_draft(draft)
+    cuda = torch.device(device).type == "cuda"
+    if cuda and check_sync:
+        ex._multi_decode_step = _no_sync(ex._multi_decode_step)
+        ex._spec_multi_step = _no_sync(ex._spec_multi_step)
+    multi, execute_multi = [], ex.execute_multi
+
+    def recorded(plan, reqs, now, h, *, speculate=0):
+        n0 = ex.n_dispatches
+        out = execute_multi(plan, reqs, now, h, speculate=speculate)
+        if ex.n_dispatches > n0:
+            multi.append((h, speculate))
+        return out
+
+    ex.execute_multi = recorded
     slo_ttft, slo_tpot = requests[0].ttft_slo, requests[0].tpot_slo
     sched = make_scheduler("fairbatching",
                            LinearCostModel(a=5e-3, b=7e-5, c=4e-8))
     eng = Engine(sched, ex, EngineConfig(ttft_slo=slo_ttft,
-                                         tpot_slo=slo_tpot))
+                                         tpot_slo=slo_tpot,
+                                         commit_horizon=horizon,
+                                         speculate=gamma))
     for r in requests:
         eng.submit(r)
     first, n = {}, 0
+    for k in KERNELS.values():
+        k.launches = 0
     t0 = time.perf_counter()
     while eng.has_work and n < max_steps:
         eng.step()
@@ -352,22 +613,28 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
         for rid, lg in ex.last_logits.items():
             first.setdefault(rid, lg)
     wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
     if eng.has_work:
         raise AssertionError(f"engine still busy after {max_steps} steps")
-    return eng, ex, first, wall
+    if cuda:
+        for name, c in launches.items():
+            SERVING_LAUNCHES[name] += c
+    return Served(eng, ex, first, wall, launches, multi)
 
 
-def phase_parity(cfg, device) -> dict:
-    """The same weights and requests on ``device`` and on the CPU."""
+PARITY_PAGES = dict(page_size=16, num_pages=64, max_pages_per_seq=8)
+
+
+def phase_parity(cfg, device) -> tuple[dict, dict]:
+    """The same weights and requests on ``device`` and on the CPU; returns
+    the record and the card's tokens."""
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     out = {}
     for dev in (device, "cpu"):
         reqs = make_requests(cfg, 6, (8, 64), 8, 0.01, seed=2)
-        eng, ex, first, _ = serve(cfg, params, dev, reqs, page_size=16,
-                                  num_pages=64, max_pages_per_seq=8,
-                                  capture_logits=True)
-        out[dev] = ({r: list(q.generated_tokens)
-                     for r, q in eng.requests.items()}, first)
+        run = serve(cfg, params, dev, reqs, capture_logits=True,
+                    **PARITY_PAGES)
+        out[dev] = (run.tokens, run.first)
     (tok_d, lg_d), (tok_c, lg_c) = out[device], out["cpu"]
     err = max(float(np.abs(lg_d[r] - lg_c[r]).max()) for r in lg_c)
     rec = {"requests": len(tok_c), "tokens_equal": tok_d == tok_c,
@@ -376,45 +643,184 @@ def phase_parity(cfg, device) -> dict:
     _emit("serve_parity", rec)
     if tok_d != tok_c or lg_d.keys() != lg_c.keys() or err > ATOL_LOGITS:
         raise AssertionError("card and CPU runs disagree")
-    return rec
+    return rec, tok_d
+
+
+def phase_path_parity(cfg, device, fused_tokens: dict) -> list:
+    """Phase 4's weights and requests through the sequential, multi-step
+    and speculative paths, on ``device`` and on the CPU."""
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = init_params(dcfg, torch.Generator().manual_seed(5), "cpu")
+    paths = {
+        "sequential": dict(mode="sequential", capture_logits=True),
+        "multi_h4": dict(horizon=4),
+        "spec_self_draft": dict(gamma=2, draft=lambda: TruncatedSelfDraft(1)),
+        "spec_small_draft": dict(gamma=2, draft=lambda: SmallModelDraft(
+            dcfg, dparams)),
+    }
+    recs = []
+    for name, kw in paths.items():
+        kw = dict(kw)
+        make_draft = kw.pop("draft", None)
+        runs = {}
+        for dev in (device, "cpu"):
+            reqs = make_requests(cfg, 6, (8, 64), 8, 0.01, seed=2)
+            runs[dev] = serve(cfg, params, dev, reqs, **PARITY_PAGES,
+                              draft=make_draft() if make_draft else None,
+                              **kw)
+        d, c = runs[device], runs["cpu"]
+        rec = {"path": name, "tokens_equal_cpu": d.tokens == c.tokens,
+               "tokens_equal_fused": d.tokens == fused_tokens,
+               "dispatches": d.ex.n_dispatches, "steps": len(d.eng.steps),
+               "multi_dispatches": len(d.multi), "launches": d.launches,
+               "spec_accepted": d.eng.spec_accepted,
+               "spec_drafted": d.eng.spec_drafted}
+        ok = rec["tokens_equal_cpu"] and rec["tokens_equal_fused"]
+        if name == "sequential":
+            err = max(float(np.abs(d.first[r] - c.first[r]).max())
+                      for r in c.first)
+            rec["first_logits_max_abs_err"] = err
+            ok &= d.first.keys() == c.first.keys() and err <= ATOL_LOGITS
+        else:
+            ok &= len(d.multi) >= 1
+        _emit("path_parity", rec)
+        if not ok:
+            raise AssertionError(f"path {name}: card, CPU and fused "
+                                 f"single-step runs disagree")
+        recs.append(rec)
+    return recs
+
+
+def _check_outputs(run: Served, cfg, new_tokens: int) -> None:
+    for r in run.eng.requests.values():
+        toks = r.generated_tokens
+        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"request {r.req_id}: bad output {toks[:8]}")
+
+
+def _serve_record(run: Served, reqs, cfg, cuda: bool) -> dict:
+    s = summarize(run.eng.done, duration=max(run.eng.now, 1e-9))
+    n_out = sum(len(r.generated_tokens) for r in run.eng.requests.values())
+    # engine-clock step times: a committed horizon's steps get dt / H each
+    pre = [st.t_end - st.t_start for st in run.eng.steps if st.n_prefill]
+    dec = [st.t_end - st.t_start for st in run.eng.steps if not st.n_prefill]
+    return {"model": cfg.name, "layers": cfg.n_layers, "requests": len(reqs),
+            "prompt_tokens": sum(r.prompt_len for r in reqs),
+            "output_tokens": n_out, "steps": len(run.eng.steps),
+            "dispatches": run.ex.n_dispatches,
+            "prefill_step_median_s": statistics.median(pre) if pre else None,
+            "decode_step_median_s": statistics.median(dec) if dec else None,
+            "wall_s": run.wall, "output_tok_per_s": n_out / run.wall,
+            "ttft_p50_s": s["ttft_p50"], "ttft_p99_s": s["ttft_p99"],
+            "tpot_p50_s": s["tpot_p50"], "tpot_p99_s": s["tpot_p99"],
+            "slo_attainment": s["slo_attainment"],
+            "bucket_keys": len(run.ex.compile_keys),
+            "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                           if cuda else None)}
+
+
+SERVE_PAGES = dict(page_size=128, num_pages=1024, max_pages_per_seq=32)
 
 
 def phase_serve(cfg, device, *, n_req=16, prompt_range=(256, 3072),
-                new_tokens=32, page_size=128, num_pages=1024,
-                max_pages_per_seq=32, gap=0.05) -> dict:
-    """The main path at full width: Engine + fairbatching + fused executor."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
+                new_tokens=32, gap=0.05, params=None) -> tuple[dict, dict]:
+    """The main path at full width: Engine + fairbatching + fused executor.
+    Returns the record and the tokens."""
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_params(cfg, gen, device)
     reqs = make_requests(cfg, n_req, prompt_range, new_tokens, gap, seed=3,
                          slo=(10.0, 0.25))
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    paged_attention_ragged.launches = 0
-    eng, ex, _, wall = serve(cfg, params, device, reqs, page_size=page_size,
-                             num_pages=num_pages,
-                             max_pages_per_seq=max_pages_per_seq)
-    launches = paged_attention_ragged.launches
-    for r in eng.requests.values():
-        toks = r.generated_tokens
-        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab for t in toks):
-            raise AssertionError(f"request {r.req_id}: bad output {toks[:8]}")
-    s = summarize(eng.done, duration=max(eng.now, 1e-9))
-    n_out = sum(len(r.generated_tokens) for r in eng.requests.values())
-    rec = {"model": cfg.name, "layers": cfg.n_layers, "requests": len(reqs),
-           "prompt_tokens": sum(r.prompt_len for r in reqs),
-           "output_tokens": n_out, "steps": len(eng.steps),
-           "dispatches": ex.n_dispatches, "attention_launches": launches,
-           "wall_s": wall, "output_tok_per_s": n_out / wall,
-           "ttft_p50_s": s["ttft_p50"], "ttft_p99_s": s["ttft_p99"],
-           "tpot_p50_s": s["tpot_p50"], "tpot_p99_s": s["tpot_p99"],
-           "slo_attainment": s["slo_attainment"],
-           "bucket_keys": len(ex.compile_keys),
-           "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated()
-                                          if cuda else None)}
+    run = serve(cfg, params, device, reqs, **SERVE_PAGES)
+    _check_outputs(run, cfg, new_tokens)
+    rec = _serve_record(run, reqs, cfg, cuda)
+    rec["attention_launches"] = run.launches["paged_attention_ragged"]
     _emit("serve", rec)
-    return rec
+    return rec, run.tokens
+
+
+def _release_memory() -> None:
+    """Free the card's memory of finished runs: an executor and its draft
+    refer to each other, so their pools wait for the cycle collector."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _share_equal(got: dict, ref: dict) -> float:
+    same = sum(a == b for r in ref for a, b in zip(got[r], ref[r]))
+    return same / max(sum(len(v) for v in ref.values()), 1)
+
+
+def phase_serve_paths(cfg, device, params, serve16_tokens: dict) -> list:
+    """Sequential mode, committed multi-step decode and speculative decode
+    at full width, with their launch counts held to their dispatches."""
+    cuda = torch.device(device).type == "cuda"
+    serve16 = lambda: make_requests(cfg, 16, (256, 3072), 32, 0.05, seed=3,
+                                    slo=(10.0, 0.25))
+    decode16 = lambda: make_requests(cfg, 16, (256, 3072), 64, 0.0, seed=3,
+                                     slo=(10.0, 0.25))
+    if cuda:
+        _release_memory()
+        torch.cuda.reset_peak_memory_stats()
+    ref = serve(cfg, params, device, decode16(), **SERVE_PAGES)
+    _check_outputs(ref, cfg, 64)
+    decode16_tokens = ref.tokens
+    _emit("serve_path", {"workload": "decode16_fused_reference",
+                         **_serve_record(ref, decode16(), cfg, cuda),
+                         "launches": ref.launches})
+    del ref
+    workloads = [
+        ("serve16_sequential", serve16, 32, serve16_tokens,
+         dict(mode="sequential")),
+        ("decode16_multi_h8", decode16, 64, decode16_tokens,
+         dict(horizon=8)),
+        ("decode16_spec_g3", decode16, 64, decode16_tokens,
+         dict(gamma=3, horizon=4, draft=TruncatedSelfDraft(6))),
+    ]
+    recs = []
+    for name, make, new_tokens, ref_tokens, kw in workloads:
+        if cuda:
+            _release_memory()
+            torch.cuda.reset_peak_memory_stats()
+        reqs = make()
+        run = serve(cfg, params, device, reqs, **SERVE_PAGES, **kw)
+        _check_outputs(run, cfg, new_tokens)
+        ex, nl = run.ex, cfg.n_layers
+        draft = ex.draft
+        # a speculative round: γ draft steps (+ the sync pass) over the
+        # draft's layers, one verify pass over the target's
+        want_b3 = sum(h * ((g + draft.needs_sync_pass) * draft.n_layers + nl
+                           if g else nl) for h, g in run.multi)
+        want_b1 = nl * (ex.n_dispatches - len(run.multi))
+        if ex.mode == "sequential":
+            want_b3, want_b1 = nl * ex.n_dispatches, 0
+        rec = {"workload": name, **_serve_record(run, reqs, cfg, cuda),
+               "multi_dispatches": len(run.multi),
+               "multi_steps": sum(h for h, _ in run.multi),
+               "ragged_launches": run.launches["paged_attention_ragged"],
+               "batched_launches": run.launches["paged_attention"],
+               "expected_ragged_launches": want_b1,
+               "expected_batched_launches": want_b3,
+               "spec_accepted": run.eng.spec_accepted,
+               "spec_drafted": run.eng.spec_drafted,
+               "share_tokens_equal_fused": _share_equal(run.tokens,
+                                                        ref_tokens)}
+        _emit("serve_path", rec)
+        if (rec["batched_launches"] != want_b3 or want_b3 == 0
+                or rec["ragged_launches"] != want_b1):
+            raise AssertionError(f"{name}: launches do not match the "
+                                 f"dispatches")
+        if ex.mode != "sequential" and not run.multi:
+            raise AssertionError(f"{name}: no multi-step dispatch ran")
+        recs.append(rec)
+        del run, ex, draft
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -444,27 +850,43 @@ def main() -> int:
                 print(f"ptxas {n}: {line.strip()}")
 
     recs = phase_kernels("cuda", cuda_timer)
-    phase_parity(dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2),
-                 "cuda")
+    brecs = phase_batched_kernels("cuda", cuda_timer)
+    small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
+    _, fused_tokens = phase_parity(small, "cuda")
+    phase_path_parity(small, "cuda", fused_tokens)
     cfg = get("h2o-danube-1.8b")
-    torch.cuda.empty_cache()
-    serve_rec = phase_serve(cfg, "cuda")
+    _release_memory()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    serve_rec, serve16_tokens = phase_serve(cfg, "cuda", params=params)
     if serve_rec["attention_launches"] == 0 or serve_rec[
             "attention_launches"] != cfg.n_layers * serve_rec["dispatches"]:
         raise AssertionError(
             f"attention launches {serve_rec['attention_launches']} != "
             f"{cfg.n_layers} x {serve_rec['dispatches']} dispatches")
+    phase_serve_paths(cfg, "cuda", params, serve16_tokens)
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
+    main_brec = brecs[0]          # step (d), pages of 128: decode batches
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
         "replaces": "src/repro/kernels/paged_attention.py:243",
-        "launches": serve_rec["attention_launches"],
+        "launches": SERVING_LAUNCHES["paged_attention_ragged"],
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}]
+        "library_ms": main_rec["library_ms"]}, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:382",
+        "launches": SERVING_LAUNCHES["paged_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in brecs),
+        "ms": main_brec["ms"], "plain_ms": main_brec["plain_ms"],
+        "bound_ms": main_brec["bound_ms"], "bound_by": main_brec["bound_by"],
+        "library_ms": main_brec["library_ms"]}]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

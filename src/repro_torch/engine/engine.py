@@ -732,14 +732,16 @@ class Engine:
                 tok = ist.emitted.get(it.req_id)
                 if isinstance(tok, list):
                     # speculative round (§18): all-decode by construction;
-                    # an empty list is a capped round (no progress)
+                    # an empty list is a capped round (no progress) — the
+                    # request may have finished in an earlier round of the
+                    # dispatch, and is finished only once
                     if tok:
                         req.generated_tokens.extend(
                             x for x in tok if x is not None)
                         req.advance(len(tok), t)
                         ran_d += 1
-                    if req.state is RequestState.FINISHED:
-                        self._finish(req)
+                        if req.state is RequestState.FINISHED:
+                            self._finish(req)
                     continue
                 if tok is not None:
                     req.generated_tokens.append(tok)

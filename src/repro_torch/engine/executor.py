@@ -12,15 +12,21 @@
   token — into ONE padded token stream and runs a single forward per step
   (DESIGN.md §11), so the wall-clock step times feeding the scheduler's
   online calibration (paper §3.2) measure the unified batch the fairness
-  math reasons about. Attention always takes the ragged paged contract:
-  the hand-written CUDA kernel on the card, its plain PyTorch version on
-  the CPU. The time ``execute`` returns ends after the device finished
-  the step (the argmax copy to the host synchronizes every step).
+  math reasons about. Its attention takes the ragged paged contract by
+  default (``ragged_attention=True``, on every device); ``False`` routes it
+  through the batched kernel on a per-sequence padded view, as the JAX
+  executor does off the TPU. ``mode="sequential"`` keeps the per-item
+  launch loop as the parity oracle; ``execute_multi`` runs committed
+  multi-step decode (DESIGN.md §12) and, with a draft installed by
+  ``set_draft``, speculative rounds (§18), each horizon as one dispatch
+  with a single device→host copy at its end. Every kernel is hand-written
+  CUDA on the card and its plain PyTorch version on the CPU. The time a
+  step returns ends after the device finished it (the copy of its tokens
+  to the host synchronizes).
 
-Not ported yet (each raises ``NotImplementedError``): ``mode="sequential"``,
-quantized KV (``kv_dtype != "fp32"``), ``mesh`` sharding, the MoE family,
-``set_draft`` and ``attach_cache``. ``execute_multi`` is left undefined,
-so the engine takes its single-step path.
+Not ported yet (each raises ``NotImplementedError``): quantized KV
+(``kv_dtype != "fp32"``, kernel B2), ``mesh`` sharding, the MoE family and
+``attach_cache`` (the prefix cache).
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..core.cost_model import LinearCostModel
 from ..core.types import BatchPlan
-from ..kernels.ops import paged_attention_ragged_op
+from ..kernels.ops import paged_attention_op, paged_attention_ragged_op
 from ..models.layers import attn_qkv, mlp_apply
 from ..models.module import rmsnorm
 from ..models.weights import params_to
@@ -140,6 +146,56 @@ def _later(what: str, where: str) -> NotImplementedError:
         f"{what} is not ported to PyTorch yet ({where}, a later slice)")
 
 
+def kv_slots(table, positions, page_size: int, valid=None):
+    """Flat (page ids, slots) of the K/V rows at ``positions`` (B, T)
+    through ``table`` (B, n_pages), as int64 index tensors for
+    ``index_put_``; rows with ``valid`` False go to trash page 0. The page
+    index is clamped to the table before the gather: a padded prefill
+    chunk's positions may run past it (JAX's ``take_along_axis`` clamps
+    silently, torch would raise), and those rows are invalid anyway."""
+    col = (positions // page_size).clamp(max=table.shape[1] - 1)
+    page_ids = torch.gather(table, 1, col.long())
+    if valid is not None:
+        page_ids = torch.where(valid, page_ids, 0)
+    return (page_ids.reshape(-1).long(),
+            (positions % page_size).reshape(-1).long())
+
+
+def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
+                  positions, tables, ctx_lens, page_size: int, valid=None,
+                  n_layers: Optional[int] = None):
+    """Dense-family forward over paged KV, one batched attention launch per
+    layer. x: (B, T, d); positions: (B, T); tables: (B, n_pages); ctx_lens:
+    (B,) int32; ``layers`` the per-layer weight dicts over the pools'
+    leading layer dim. ``n_layers`` truncates the stack (early-exit draft
+    pass, DESIGN.md §18); None runs it all. K/V writes land in the pools in
+    place (``index_put_``), where JAX's ``.at[].set`` returns new pools;
+    their (page, slot) targets are the same in every layer, so they are
+    gathered once. Returns the hidden states (B, T, d)."""
+    q_starts = positions[:, 0].contiguous()
+    idx = kv_slots(tables, positions, page_size, valid)
+    for l in range(len(layers) if n_layers is None else n_layers):
+        lp = layers[l]
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(lp["attn"], h, positions, cfg)
+        k_pages[l].index_put_(idx, k.reshape(-1, *k.shape[2:]))
+        v_pages[l].index_put_(idx, v.reshape(-1, *v.shape[2:]))
+        o = paged_attention_op(q, k_pages[l], v_pages[l], tables, ctx_lens,
+                               q_starts, window=cfg.window)
+        x = x + o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return x
+
+
+def layer_views(params: dict, n_layers: int) -> list:
+    """Per-layer weight dicts over the stacked-layer parameter tree."""
+    lay = params["layers"]
+    return [{"attn": {k: w[l] for k, w in lay["attn"].items()},
+             "mlp": {k: w[l] for k, w in lay["mlp"].items()},
+             "ln1": lay["ln1"][l], "ln2": lay["ln2"][l]}
+            for l in range(n_layers)]
+
+
 class PagedTransformerExecutor:
     """Real hybrid-step executor over a paged KV cache (dense GQA, fp32).
 
@@ -152,15 +208,14 @@ class PagedTransformerExecutor:
     def __init__(self, cfg: ArchConfig, params, *, num_pages: int = 256,
                  page_size: int = 128, max_pages_per_seq: int = 16,
                  mode: str = "fused",
+                 ragged_attention: bool = True,
                  capture_logits: bool = False,
                  kv_dtype: str = "fp32",
                  trim_page_tables: bool = True,
                  mesh=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        if mode == "sequential":
-            raise _later("mode='sequential'", "queue A5, kernel B3")
-        if mode != "fused":
+        if mode not in ("fused", "sequential"):
             raise ValueError(f"unknown mode {mode!r}")
         if kv_dtype != "fp32":
             raise _later(f"kv_dtype={kv_dtype!r}", "queue A6, kernel B2")
@@ -172,12 +227,11 @@ class PagedTransformerExecutor:
         self.mode = mode
         self.page_size = page_size
         self.params = params_to(params, self.device)
-        lay = self.params["layers"]
-        self._layers = [
-            {"attn": {k: w[l] for k, w in lay["attn"].items()},
-             "mlp": {k: w[l] for k, w in lay["mlp"].items()},
-             "ln1": lay["ln1"][l], "ln2": lay["ln2"][l]}
-            for l in range(cfg.n_layers)]
+        self._layers = layer_views(self.params, cfg.n_layers)
+        # fused-step attention backend (DESIGN.md §11): the packed stream
+        # feeds the ragged kernel directly; False routes q through a
+        # host-staged per-sequence padded view into the batched kernel
+        self.ragged_attention = ragged_attention
         # pages-bucket trim (DESIGN.md §14): stage fused block tables at the
         # ladder over the step's widest table instead of max_pages_per_seq
         self.trim_page_tables = trim_page_tables
@@ -193,6 +247,13 @@ class PagedTransformerExecutor:
                                    device=self.device)
         self.v_pages = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
+        # speculative decode (DESIGN.md §18): a draft adapter installed via
+        # set_draft() enables execute_multi(speculate=γ); force_reject
+        # zeroes every acceptance on the device (the parity edge case)
+        self.draft = None
+        self.spec_force_reject = False
+        self.last_spec_accepted = 0
+        self.last_spec_drafted = 0
         # items the last execute() could not serve (out of KV blocks); the
         # engine skips their progress so the scheduler retries them
         self.last_deferred: frozenset[int] = frozenset()
@@ -208,8 +269,133 @@ class PagedTransformerExecutor:
         self._staging: dict[tuple, tuple[np.ndarray, dict]] = {}
 
     # ------------------------------------------------------------------
-    # the fused step body
+    # step bodies: device work only, no host round trip inside
     # ------------------------------------------------------------------
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.params["embed"][tokens.long()]
+
+    def _head(self, h_last: torch.Tensor) -> torch.Tensor:
+        p = self.params
+        return rmsnorm(h_last, p["ln_f"], self.cfg.norm_eps) @ p["head"]
+
+    def _forward(self, x, positions, tables, ctx_lens, valid=None,
+                 n_layers=None):
+        """Paged forward over the executor's pools (``paged_forward``)."""
+        return paged_forward(self.cfg, self._layers, self.k_pages,
+                             self.v_pages, x, positions, tables, ctx_lens,
+                             self.page_size, valid, n_layers)
+
+    @torch.no_grad()
+    def _chunk_step(self, st: dict, n_valid: int) -> torch.Tensor:
+        """One prefill chunk, B=1 (sequential mode). ``st``: tokens and
+        positions (n_tok,) — pad tokens keep monotone positions (the causal
+        mask stays exact) but their K/V lands on the trash page — table
+        (max_pages,), ctx (1,) excluding the pad. Returns the last real
+        token's logits (vocab,)."""
+        n_tok = st["tokens"].shape[0]
+        x = self._embed(st["tokens"])[None]                # (1, T, d)
+        valid = (torch.arange(n_tok, device=self.device) < n_valid)[None]
+        x = self._forward(x, st["positions"][None], st["table"][None],
+                          st["ctx"], valid)
+        return self._head(x[0, max(n_valid - 1, 0)])
+
+    @torch.no_grad()
+    def _decode_step(self, st: dict) -> torch.Tensor:
+        """One decode token per row: tokens/positions/ctx (B,), tables
+        (B, max_pages). Returns logits (B, vocab)."""
+        x = self._embed(st["tokens"])[:, None]            # (B, 1, d)
+        x = self._forward(x, st["positions"][:, None], st["tables"],
+                          st["ctx"])
+        return self._head(x[:, 0])
+
+    @torch.no_grad()
+    def _multi_decode_step(self, st: dict, horizon: int) -> torch.Tensor:
+        """``horizon`` greedy decode steps as ONE dispatch (DESIGN.md §12).
+
+        Each iteration is exactly the ``_decode_step`` body — same shapes,
+        same ops, so emitted tokens equal running the steps one dispatch at
+        a time — with the argmax token fed back on the device and K/V
+        writes advancing in-loop (the caller pre-reserved ``horizon`` slots
+        per sequence in the block tables). Nothing here waits for the
+        device. Returns the (horizon, B) int32 token matrix.
+        """
+        tokens, positions, ctx = st["tokens"], st["positions"], st["ctx"]
+        emitted = []
+        for h in range(horizon):
+            x = self._embed(tokens)[:, None]              # (B, 1, d)
+            x = self._forward(x, (positions + h)[:, None], st["tables"],
+                              ctx + h)
+            tokens = self._head(x[:, 0]).argmax(-1).to(torch.int32)
+            emitted.append(tokens)
+        return torch.stack(emitted)
+
+    @torch.no_grad()
+    def _spec_multi_step(self, st: dict, *, rounds: int, gamma: int,
+                         force_reject: bool) -> torch.Tensor:
+        """``rounds`` speculative draft/verify rounds as ONE dispatch
+        (DESIGN.md §18).
+
+        Per round: γ draft steps (argmax fed forward) build the candidate
+        run; one Tq=γ+1 target pass verifies the fed-back token plus every
+        draft at once; ``n_acc`` leading draft/target matches accept, the
+        verified argmax covers the rejection slot, and per-sequence state
+        (token, position, context) advances by ``eff = min(n_acc+1,
+        remaining)`` on the device. A sequence whose emission budget
+        (``max_emit``) is exhausted freezes: eff=0, its rewrites are
+        byte-idempotent, its state holds. The emitted tokens are always
+        target argmaxes over exactly the sequential pass's visible key set.
+        ``force_reject`` zeroes every match (pure verified fallback).
+
+        Returns one int32 tensor (B, R·(γ+1) + 1 + R): the emitted tokens
+        (``[:, :counts]`` is each sequence's stream), the count, and each
+        round's emission — concatenated so one copy brings them all home.
+        """
+        draft = self.draft
+        G = gamma + 1
+        cur_tok, cur_pos, cur_ctx = st["tokens"], st["positions"], st["ctx"]
+        tables, max_emit = st["tables"], st["max_emit"]
+        bsz = cur_tok.shape[0]
+        dev = cur_tok.device
+        counts = torch.zeros(bsz, dtype=torch.int32, device=dev)
+        # the last column takes the writes JAX's mode="drop" would drop
+        emitted = torch.zeros((bsz, rounds * G + 1), dtype=torch.int32,
+                              device=dev)
+        rows = torch.arange(bsz, device=dev)
+        steps = torch.arange(G, dtype=torch.int32, device=dev)[None]
+        accs = []
+        for _ in range(rounds):
+            feed = [cur_tok]
+            tok = cur_tok
+            for j in range(gamma):
+                logits = draft.step(tok, cur_pos + j, tables, cur_ctx + j)
+                tok = logits.argmax(-1).to(torch.int32)
+                feed.append(tok)
+            if draft.needs_sync_pass:
+                # write the last draft token's own draft-KV so a fully-
+                # accepting sequence enters the next round with complete
+                # draft context (logits discarded)
+                draft.step(tok, cur_pos + gamma, tables, cur_ctx + gamma)
+            feed = torch.stack(feed, dim=1)                   # (B, G)
+            x = self._forward(self._embed(feed), cur_pos[:, None] + steps,
+                              tables, cur_ctx + gamma)
+            tgt = self._head(x).argmax(-1).to(torch.int32)    # (B, G)
+            match = (feed[:, 1:] == tgt[:, :-1]).to(torch.int32)
+            if force_reject:
+                match = match * 0
+            n_acc = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+            eff = torch.minimum(n_acc + 1, (max_emit - counts).clamp(min=0))
+            idx = torch.where(steps < eff[:, None], counts[:, None] + steps,
+                              rounds * G)
+            emitted.scatter_(1, idx.long(), tgt)
+            accs.append(eff)
+            counts = counts + eff
+            last = tgt[rows, (eff - 1).clamp(min=0).long()]
+            cur_tok = torch.where(eff > 0, last, cur_tok)
+            cur_pos = cur_pos + eff
+            cur_ctx = cur_ctx + eff
+        return torch.cat([emitted[:, :rounds * G], counts[:, None],
+                          torch.stack(accs, dim=1)], dim=1)
 
     @torch.no_grad()
     def _fused_step(self, st: dict, t_bucket: int) -> torch.Tensor:
@@ -218,16 +404,20 @@ class PagedTransformerExecutor:
         ``st`` holds the staged int32 arrays on the device: tokens,
         positions, tok_pages, tok_slots (T,) — the packed stream, padding →
         trash page; tables (S, pg_bucket); ctx, q_starts, q_lens, pos0,
-        last_idx (S,). Per layer: one K/V scatter for every sequence's
-        writes and one ragged attention launch; at the top one head
-        projection over each sequence's last-token hidden state. Returns
-        the logits (S, vocab).
+        last_idx (S,); for the batched backend also seq_gather (S, Tq) and
+        pack_gather (T,), the packed↔per-sequence row maps. Per layer: one
+        K/V scatter for every sequence's writes and one attention launch;
+        at the top one head projection over each sequence's last-token
+        hidden state. Returns the logits (S, vocab).
         """
-        cfg, p = self.cfg, self.params
-        x = p["embed"][st["tokens"].long()]                # (T, d)
+        cfg = self.cfg
+        x = self._embed(st["tokens"])                      # (T, d)
         pos2d = st["positions"][None]
         tok_pages = st["tok_pages"].long()
         tok_slots = st["tok_slots"].long()
+        if not self.ragged_attention:
+            seq_gather = st["seq_gather"].long()           # (S, Tq)
+            pack_gather = st["pack_gather"].long()         # (T,)
         for l, lp in enumerate(self._layers):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn_qkv(lp["attn"], h[None], pos2d, cfg)
@@ -236,22 +426,24 @@ class PagedTransformerExecutor:
             # because attention never reads that page.
             self.k_pages[l].index_put_((tok_pages, tok_slots), k[0])
             self.v_pages[l].index_put_((tok_pages, tok_slots), v[0])
-            o = paged_attention_ragged_op(
-                q[0], self.k_pages[l], self.v_pages[l], st["tables"],
-                st["ctx"], st["q_starts"], st["q_lens"], st["pos0"],
-                window=cfg.window)
+            if self.ragged_attention:
+                o = paged_attention_ragged_op(
+                    q[0], self.k_pages[l], self.v_pages[l], st["tables"],
+                    st["ctx"], st["q_starts"], st["q_lens"], st["pos0"],
+                    window=cfg.window)
+            else:
+                ov = paged_attention_op(
+                    q[0][seq_gather], self.k_pages[l], self.v_pages[l],
+                    st["tables"], st["ctx"], st["pos0"], window=cfg.window)
+                o = ov.reshape(-1, *ov.shape[2:])[pack_gather]
             x = x + o.reshape(t_bucket, cfg.q_dim) @ lp["attn"]["wo"]
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
-        h_last = x[st["last_idx"].long()]                  # (S, d)
-        return rmsnorm(h_last, p["ln_f"], cfg.norm_eps) @ p["head"]
+        return self._head(x[st["last_idx"].long()])        # (S, vocab)
 
     # ------------------------------------------------------------------
 
     def attach_cache(self, prefix_cache) -> None:
         raise _later("the prefix cache", "queue A9")
-
-    def set_draft(self, draft) -> None:
-        raise _later("speculative decode", "queue A8")
 
     def _extend(self, req_id: int, n_tokens: int, *,
                 mirror_cow: bool = True) -> Optional[list]:
@@ -271,9 +463,215 @@ class PagedTransformerExecutor:
             dst = torch.as_tensor(new, dtype=torch.long, device=self.device)
             self.k_pages[:, dst] = self.k_pages[:, src]
             self.v_pages[:, dst] = self.v_pages[:, src]
+            if self.draft is not None:
+                # draft pools index the same global page ids (DESIGN.md §18)
+                self.draft.mirror_cow(src, dst)
 
     def execute(self, plan: BatchPlan, requests, now: float) -> tuple[float, dict]:
+        if self.mode == "sequential":
+            return self._execute_sequential(plan, requests, now)
         return self._execute_fused(plan, requests, now)
+
+    # ------------------------------------------------------------------
+    # staging: every dispatch's inputs go to the device in one copy
+    # ------------------------------------------------------------------
+
+    def _to_device(self, flat: np.ndarray, views: dict) -> dict:
+        """One host→device copy of the staging buffer, cut like ``views``."""
+        buf = torch.from_numpy(flat).to(self.device)
+        out, off = {}, 0
+        for name, a in views.items():
+            out[name] = buf[off:off + a.size].view(a.shape)
+            off += a.size
+        return out
+
+    def _stage(self, arrays: dict) -> dict:
+        """Named int32 arrays → device tensors, in one host→device copy."""
+        flat = np.concatenate([np.asarray(a, np.int32).ravel()
+                               for a in arrays.values()])
+        views = {k: np.asarray(a) for k, a in arrays.items()}
+        return self._to_device(flat, views)
+
+    def _table(self, req_id: int) -> np.ndarray:
+        """The request's block table, zero-padded (→ trash page 0) to
+        ``max_pages`` columns."""
+        tbl = self.alloc.tables.get(req_id, [])
+        pad = self.max_pages - len(tbl)
+        assert pad >= 0, "max_pages_per_seq exceeded"
+        return np.asarray(tbl + [0] * pad, np.int32)
+
+    def _stage_decode(self, ids: list, requests, tokens: list,
+                      bsz: int, **extra) -> dict:
+        """A decode batch padded to ``bsz`` rows: tokens (the fed-back
+        ones), positions, ctx (B,), tables (B, max_pages), plus ``extra``
+        (B,) columns whose pad rows are 0. Pad rows read and write only the
+        trash page (table 0, position 0, context 1)."""
+        a = {"tokens": np.zeros(bsz, np.int32),
+             "positions": np.zeros(bsz, np.int32),
+             "ctx": np.ones(bsz, np.int32),
+             "tables": np.zeros((bsz, self.max_pages), np.int32)}
+        for i, rid in enumerate(ids):
+            req = requests[rid]
+            a["tokens"][i] = tokens[i]
+            # the fed-back token's position: context counts it as emitted,
+            # but its K/V enters the cache only now
+            a["positions"][i] = req.context - 1
+            a["ctx"][i] = req.context
+            a["tables"][i] = self._table(rid)
+        for name, col in extra.items():
+            a[name] = np.zeros(bsz, np.int32)
+            a[name][:len(col)] = col
+        return self._stage(a)
+
+    @staticmethod
+    def _fed_back(req) -> int:
+        return req.generated_tokens[-1] if req.generated_tokens else 0
+
+    # ------------------------------------------------------------------
+    # slack-bounded multi-step decode commitment (DESIGN.md §12)
+    # ------------------------------------------------------------------
+
+    def set_draft(self, draft) -> None:
+        """Install a draft adapter (``spec_decode``); enables
+        ``execute_multi(speculate=γ)``."""
+        draft.bind(self)
+        self.draft = draft
+
+    def execute_multi(self, plan: BatchPlan, requests, now: float,
+                      horizon: int, *, speculate: int = 0) -> tuple[list, dict]:
+        """Run ``horizon`` committed decode steps as ONE device dispatch.
+
+        The engine only commits all-decode plans (``capacity.commit_horizon``
+        gates how deep). KV pages for all ``horizon`` tokens per sequence
+        are reserved up front; the loop feeds each step's argmax token back
+        on the device and advances K/V writes in-loop; the (horizon, B)
+        token matrix comes home in one copy at the end. Returns
+        ``(steps, emitted_seq)`` where ``steps`` is one
+        ``(dt, new_tokens, context)`` triple per internal step (the §3.2
+        observation stream) and ``emitted_seq`` maps req_id to its
+        ``horizon`` output tokens. Out-of-blocks sequences defer whole
+        (``last_deferred``), exactly like the single-step paths.
+
+        ``speculate=γ > 0`` routes to the speculative draft/verify path
+        (``horizon`` becomes the round count; requires ``set_draft``); its
+        second return value is then one dict PER ROUND mapping req_id to
+        that round's emitted tokens (DESIGN.md §18).
+
+        ``capture_logits`` is not supported on any multi-step path — the
+        per-step logits never leave the device — and raises loudly rather
+        than silently returning stale ``last_logits``.
+        """
+        if self.capture_logits:
+            raise ValueError(
+                "capture_logits is not supported on the multi-step/"
+                "speculative decode path: per-step logits never leave the "
+                "device (run with commit_horizon=1/speculate=0, or disable "
+                "capture_logits)")
+        if speculate > 0:
+            return self._execute_spec(plan, requests, now, horizon, speculate)
+        assert not plan.prefill_items, "multi-step commitment is decode-only"
+        t0 = time.perf_counter()
+        deferred: set[int] = set()
+        ids = []
+        for it in plan.decode_items:
+            if self._extend(it.req_id, horizon) is None:
+                deferred.add(it.req_id)   # out of KV blocks: defer & retry
+                continue
+            ids.append(it.req_id)
+        self.last_deferred = frozenset(deferred)
+        self.last_logits = {}
+        if not ids:
+            return [(time.perf_counter() - t0, 0, 0)], {}
+        bsz = _bucket(len(ids), 4)
+        st = self._stage_decode(ids, requests,
+                                [self._fed_back(requests[r]) for r in ids],
+                                bsz)
+        self.n_dispatches += 1
+        self.compile_keys.add(("multi", bsz, horizon))
+        toks_np = self._multi_decode_step(st, horizon).cpu().numpy()
+        dt = time.perf_counter() - t0
+        emitted_seq = {rid: [int(toks_np[h, i]) for h in range(horizon)]
+                       for i, rid in enumerate(ids)}
+        # per-internal-step accounting: contexts grow one token per step,
+        # capped by the arch's attention window like SchedTask.cost_context
+        base = [(requests[rid].context, requests[rid].window) for rid in ids]
+        steps = [(dt / horizon, len(ids),
+                  sum(min(c + h, w) if w else c + h for c, w in base))
+                 for h in range(horizon)]
+        return steps, emitted_seq
+
+    def _execute_spec(self, plan: BatchPlan, requests, now: float,
+                      rounds: int, gamma: int) -> tuple[list, list]:
+        """``rounds`` speculative draft/verify rounds as ONE dispatch.
+
+        Reserves the optimistic ``rounds·(γ+1)`` KV slots per sequence up
+        front (a mid-run dispatch cannot defer), runs the round loop on the
+        device, then reclaims every rejected slot with the slot-granular
+        ``shrink_to`` — post-run each sequence holds exactly
+        ``context - 1 + emitted`` slots, as a non-speculative run emitting
+        the same stream would. Returns ``(steps, emitted_rounds)``: one §3.2
+        observation triple and one {req_id: [tokens]} dict per round.
+        """
+        assert not plan.prefill_items, "speculative rounds are decode-only"
+        assert self.draft is not None, \
+            "execute_multi(speculate=γ) requires set_draft()"
+        t0 = time.perf_counter()
+        G = gamma + 1
+        deferred: set[int] = set()
+        ids, pre_lens = [], {}
+        for it in plan.decode_items:
+            pre = self.alloc.context_len(it.req_id)
+            if self._extend(it.req_id, rounds * G) is None:
+                deferred.add(it.req_id)   # out of KV blocks: defer & retry
+                continue
+            ids.append(it.req_id)
+            pre_lens[it.req_id] = pre
+        self.last_deferred = frozenset(deferred)
+        self.last_logits = {}
+        self.last_spec_accepted = self.last_spec_drafted = 0
+        if not ids:
+            return [(time.perf_counter() - t0, 0, 0)], [{}]
+        self.draft.prepare(ids, requests)
+        bsz = _bucket(len(ids), 4)
+        st = self._stage_decode(
+            ids, requests, [self._fed_back(requests[r]) for r in ids], bsz,
+            # padded rows never emit
+            max_emit=[requests[r].max_new_tokens - requests[r].generated
+                      for r in ids])
+        self.n_dispatches += 1
+        self.compile_keys.add(("spec", bsz, rounds, gamma))
+        out = self._spec_multi_step(
+            st, rounds=rounds, gamma=gamma,
+            force_reject=self.spec_force_reject).cpu().numpy()
+        em, cnt, acc = out[:, :rounds * G], out[:, rounds * G], \
+            out[:, rounds * G + 1:]                        # acc: (bsz, R)
+        dt = time.perf_counter() - t0
+        emitted_rounds: list[dict] = [{} for _ in range(rounds)]
+        for i, rid in enumerate(ids):
+            e = int(cnt[i])
+            off = 0
+            for r in range(rounds):
+                k = int(acc[i, r])
+                emitted_rounds[r][rid] = [int(x) for x in em[i, off:off + k]]
+                off += k
+            # reclaim rejected reservation: keep exactly the accepted run
+            self.alloc.shrink_to(rid, pre_lens[rid] + e)
+            self.draft.note_progress(rid, pre_lens[rid] + e)
+            self.last_spec_accepted += sum(
+                max(int(acc[i, r]) - 1, 0) for r in range(rounds))
+        self.last_spec_drafted = rounds * len(ids) * gamma
+        # per-round §3.2 observations: the verify pass computes n·(γ+1)
+        # target tokens per round (draft cost is folded into the measured
+        # dt — the calibration absorbs it as per-token overhead) over
+        # contexts grown by each round's actual acceptance, window-capped
+        base = [(requests[rid].context, requests[rid].window) for rid in ids]
+        steps, grown = [], np.zeros(len(ids), np.int64)
+        for r in range(rounds):
+            c = sum(min(b + int(g), w) if w else b + int(g)
+                    for (b, w), g in zip(base, grown))
+            steps.append((dt / rounds, len(ids) * G, c))
+            grown += acc[:len(ids), r]
+        return steps, emitted_rounds
 
     def rollback_tokens(self, req_id: int, n_tokens: int) -> None:
         """Return a rolled-back dispatch's reserved KV slots (DESIGN.md §12).
@@ -283,6 +681,8 @@ class PagedTransformerExecutor:
         reservation is the whole rollback.
         """
         self.alloc.shrink(req_id, n_tokens)
+        if self.draft is not None:
+            self.draft.clamp(req_id, self.alloc.context_len(req_id))
 
     # ------------------------------------------------------------------
     # fused path: pack the whole plan, launch once
@@ -295,7 +695,8 @@ class PagedTransformerExecutor:
 
         Block tables stage at ``pg_bucket`` columns — the step's pages
         bucket, not ``max_pages`` — so attention never scores table padding
-        the mask would discard anyway."""
+        the mask would discard anyway. The batched backend also stages the
+        packed↔per-sequence row maps."""
         key = (t_bucket, s_bucket, tq_bucket, pg_bucket)
         hit = self._staging.get(key)
         if hit is not None:
@@ -306,6 +707,9 @@ class PagedTransformerExecutor:
                   "tables": (s_bucket, pg_bucket), "ctx": (s_bucket,),
                   "q_starts": (s_bucket,), "q_lens": (s_bucket,),
                   "pos0": (s_bucket,), "last_idx": (s_bucket,)}
+        if not self.ragged_attention:
+            shapes.update(seq_gather=(s_bucket, tq_bucket),
+                          pack_gather=(t_bucket,))
         flat = np.zeros(sum(math.prod(s) for s in shapes.values()), np.int32)
         views, off = {}, 0
         for name, shape in shapes.items():
@@ -314,15 +718,6 @@ class PagedTransformerExecutor:
             off += n
         self._staging[key] = (flat, views)
         return flat, views
-
-    def _to_device(self, flat: np.ndarray, views: dict) -> dict:
-        """One host→device copy of the staging buffer, cut like ``views``."""
-        buf = torch.from_numpy(flat).to(self.device)
-        out, off = {}, 0
-        for name, a in views.items():
-            out[name] = buf[off:off + a.size].view(a.shape)
-            off += a.size
-        return out
 
     def _execute_fused(self, plan: BatchPlan, requests,
                        now: float) -> tuple[float, dict]:
@@ -350,10 +745,10 @@ class PagedTransformerExecutor:
             if self._extend(it.req_id, 1, mirror_cow=False) is None:
                 deferred.add(it.req_id)
                 continue
-            last = req.generated_tokens[-1] if req.generated_tokens else 0
             # the fed-back token's position: context counts it as emitted,
             # but its K/V enters the cache only now
-            seqs.append(_PackedSeq(it.req_id, [last], pos0=req.context - 1,
+            seqs.append(_PackedSeq(it.req_id, [self._fed_back(req)],
+                                   pos0=req.context - 1,
                                    ctx=req.context, emits=True))
         self.last_deferred = frozenset(deferred)
         self.last_logits = {}
@@ -390,6 +785,9 @@ class PagedTransformerExecutor:
             st["q_lens"][i] = n
             st["pos0"][i] = s.pos0
             st["last_idx"][i] = off + n - 1
+            if not self.ragged_attention:
+                st["seq_gather"][i, :n] = np.arange(off, off + n)
+                st["pack_gather"][off:off + n] = i * tq_bucket + np.arange(n)
             off += n
 
         self.n_dispatches += 1
@@ -408,6 +806,59 @@ class PagedTransformerExecutor:
                     self.last_logits[s.req_id] = lg[i].copy()
         return time.perf_counter() - t0, emitted
 
+    # ------------------------------------------------------------------
+    # sequential escape hatch: per-item launches (parity oracle / benches)
+    # ------------------------------------------------------------------
+
+    def _execute_sequential(self, plan: BatchPlan, requests,
+                            now: float) -> tuple[float, dict]:
+        t0 = time.perf_counter()
+        emitted: dict[int, int] = {}
+        deferred: set[int] = set()
+        self.last_logits = {}
+        for it in plan.prefill_items:
+            req = requests[it.req_id]
+            if self._extend(it.req_id, it.n_tokens) is None:
+                deferred.add(it.req_id)   # out of KV blocks: defer & retry
+                continue
+            chunk = req.tokens[req.prefilled:req.prefilled + it.n_tokens]
+            n_tok = _bucket(len(chunk), 16)
+            st = self._stage({
+                "tokens": chunk + [0] * (n_tok - len(chunk)),
+                "positions": np.arange(req.prefilled, req.prefilled + n_tok),
+                "table": self._table(it.req_id),
+                "ctx": [req.prefilled + len(chunk)]})
+            self.n_dispatches += 1
+            self.compile_keys.add(("chunk", n_tok))
+            logits = self._chunk_step(st, len(chunk))
+            if req.prefilled + it.n_tokens == req.prompt_len:
+                emitted[it.req_id] = int(logits.argmax())
+                if self.capture_logits:
+                    self.last_logits[it.req_id] = logits.cpu().numpy()
+        ids = []
+        for it in plan.decode_items:
+            if self._extend(it.req_id, 1) is None:
+                deferred.add(it.req_id)
+                continue
+            ids.append(it.req_id)
+        if ids:
+            bsz = _bucket(len(ids), 4)
+            toks = [requests[r].generated_tokens[-1]
+                    if requests[r].generated_tokens else emitted.get(r, 0)
+                    for r in ids]
+            st = self._stage_decode(ids, requests, toks, bsz)
+            self.n_dispatches += 1
+            self.compile_keys.add(("decode", bsz))
+            logits = self._decode_step(st)
+            nxt = logits.argmax(-1).cpu().numpy()
+            lg = logits.cpu().numpy() if self.capture_logits else None
+            for i, rid in enumerate(ids):
+                emitted[rid] = int(nxt[i])
+                if lg is not None:
+                    self.last_logits[rid] = lg[i].copy()
+        self.last_deferred = frozenset(deferred)
+        return time.perf_counter() - t0, emitted
+
     def stats(self) -> dict:
         """Dispatch/bucket counters for benches and regression guards."""
         return {"dispatches": self.n_dispatches,
@@ -415,3 +866,5 @@ class PagedTransformerExecutor:
 
     def release(self, req_id: int) -> None:
         self.alloc.release(req_id)
+        if self.draft is not None:
+            self.draft.release(req_id)

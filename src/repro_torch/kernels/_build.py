@@ -7,10 +7,12 @@ the repository root (git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<digest>.so <name>.cu
 
-The file name carries a digest of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded. Sources include no
-PyTorch headers, so each build takes seconds; ``build`` starts one nvcc
-per missing library, all at once, and waits for them together.
+The file name carries a digest of the source, of every header under
+``csrc/`` (``*.cuh``, which the sources share) and of the flags, so an
+edited source or header rebuilds and a stale library is never loaded.
+Sources include no PyTorch headers, so each build takes seconds;
+``build`` starts one nvcc per missing library, all at once, and waits for
+them together.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"paged_attention_ragged": "paged_attention_ragged.cu"}
+SOURCES = {"paged_attention_ragged": "paged_attention_ragged.cu",
+           "paged_attention": "paged_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,8 +49,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -9,7 +9,16 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .paged_attention import paged_attention_ragged
+from .paged_attention import paged_attention, paged_attention_ragged
+
+
+def paged_attention_op(q, k_pages, v_pages, block_table, context_lens,
+                       q_starts, *, window: Optional[int] = None):
+    """Batched paged attention (decode Tq=1 / verify Tq=γ+1 / prefill-chunk
+    Tq=chunk). q: (B, Tq, H, D); ``q_starts`` the global position of
+    q[:, 0]."""
+    return paged_attention(q, k_pages, v_pages, block_table, context_lens,
+                           q_starts, window=window)
 
 
 def paged_attention_ragged_op(q, k_pages, v_pages, block_tables, context_lens,

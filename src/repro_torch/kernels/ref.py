@@ -24,6 +24,54 @@ def paged_gather(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return g.reshape(b, n * p, h, d)
 
 
+def _attend_gathered(q, k, v, context_lens, q_starts, *, window, scale):
+    """Core masked-softmax attention over already-gathered per-seq KV.
+
+    q: (B, Tq, H, D); k/v: (B, L, Hkv, D) gathered context. Row (b, t)
+    sits at q_pos = q_starts[b] + t and sees every kv_pos with kv_pos <
+    context_lens[b], kv_pos <= q_pos and, with a window, q_pos - kv_pos <
+    window; a row with no visible key gives 0.
+    """
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    dev = q.device
+    kv_pos = torch.arange(k.shape[1], device=dev)[None, :]          # (1, L)
+    q_pos = (q_starts.long()[:, None]
+             + torch.arange(tq, device=dev)[None, :])               # (B, Tq)
+    valid = kv_pos < context_lens.long()[:, None]                   # (B, L)
+    mask = valid[:, None, :] & (kv_pos[:, None, :] <= q_pos[..., None])
+    if window is not None:
+        mask &= (q_pos[..., None] - kv_pos[:, None, :]) < window
+    qf = q.reshape(b, tq, hkv, g, d).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    m = mask[:, None, None]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(m, p, torch.zeros_like(p))
+    o = torch.einsum("bhgts,bshd->bthgd", p, v.float())
+    return o.reshape(b, tq, h, d).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
+                        q_starts, *, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Reference batched paged attention (decode AND chunked prefill).
+
+    q: (B, Tq, H, D)       — Tq = 1 for decode, = chunk for prefill chunks
+    k_pages/v_pages: (P, page, Hkv, D)
+    block_table: (B, n_pages) int32 — page ids per sequence
+    context_lens: (B,) int32 — total tokens in cache (incl. current chunk)
+    q_starts: (B,) int32 — global position of q[:, 0]
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    k = paged_gather(k_pages, block_table)                 # (B, L, Hkv, D)
+    v = paged_gather(v_pages, block_table)
+    return _attend_gathered(q, k, v, context_lens, q_starts,
+                            window=window, scale=scale)
+
+
 def paged_attention_ragged_ref(q, k_pages, v_pages, block_tables,
                                context_lens, q_starts, q_lens, pos0,
                                *, window: Optional[int] = None,

@@ -24,6 +24,7 @@ from repro.configs import get_reduced
 from repro.engine.numerics import ModelTimedExecutor, capture_schedule
 from repro.models import ModelOpts, build_model
 from repro_torch.configs import get_reduced as torch_get_reduced
+from repro_torch.engine.spec_decode import TruncatedSelfDraft
 from repro_torch.models import params_from_numpy
 
 PAGE, NUM_PAGES, MAX_PAGES = 16, 64, 8
@@ -188,15 +189,24 @@ def test_decode_defers_when_out_of_blocks(setups):
 
 
 def test_unported_options_raise(setups):
+    """Quantized KV, mesh sharding and the prefix cache are later slices and
+    raise; sequential mode, multi-step decode and the draft hook work."""
     cfg, tcfg, _, tparams = setups["stablelm-3b"]
-    for kw in ({"mode": "sequential"}, {"kv_dtype": "int8"},
-               {"mesh": object()}):
+    for kw in ({"kv_dtype": "int8"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             teng.PagedTransformerExecutor(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(ValueError):
+        teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
+                                      mode="pipelined")
     ex = teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
                                        num_pages=8, page_size=4)
-    assert not hasattr(ex, "execute_multi")   # the engine's single-step path
-    with pytest.raises(NotImplementedError):
-        ex.set_draft(object())
     with pytest.raises(NotImplementedError):
         ex.attach_cache(object())
+    assert callable(ex.execute_multi)     # the engine's one-dispatch paths
+    draft = TruncatedSelfDraft(1)
+    ex.set_draft(draft)
+    assert ex.draft is draft and draft._ex is ex
+    seq = teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
+                                        mode="sequential", num_pages=8,
+                                        page_size=4)
+    assert seq.mode == "sequential"

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on the card.
 
-    python3 tools/profile_torch_serve.py [--out build/profile/serve_trace.json]
+    python3 tools/profile_torch_serve.py [--workload serve16|decode16]
+        [--horizon H] [--out build/profile/serve_trace.json]
 
-Serves ``chip_smoke.py``'s phase-5 workload (full-width h2o-danube-1.8b,
-16 seeded requests, prompts of 256-3072 tokens, 32 new tokens each) three
-times on one CUDA card: once to warm up (kernel build, cuBLAS set-up), once
-untraced, once under ``torch.profiler``. Prints, as JSON lines:
+Serves one of ``chip_smoke.py``'s full-width h2o-danube-1.8b workloads —
+``serve16`` (phase 5: 16 seeded requests, prompts of 256-3072 tokens, 32
+new tokens, arrivals 50 ms apart) or ``decode16`` (phase 5b: the same
+prompts all at time 0, 64 new tokens) — with ``commit_horizon=H``
+(default 1, the fused single-step path) three times on one CUDA card:
+once to warm up (kernel build, cuBLAS set-up), once untraced, once under
+``torch.profiler``. With H > 1 a fourth run repeats the untraced one with
+chip_smoke's sync check on (each horizon under torch's sync debug mode),
+to show what that check costs. Prints, as JSON lines:
 
 * ``untraced`` / ``traced`` — wall seconds, output tokens/s, and the
   median step time of steps that carry prefill and of decode-only steps
-  (their difference is the tracing overhead);
-* ``device_time`` — device milliseconds by kernel class (matmul, ragged
-  attention, KV scatter, other elementwise/index kernels, copies) from the
-  trace, and each class's share;
+  (a committed horizon's steps count dt / H each; the traced-untraced
+  difference is the tracing overhead);
+* ``device_time`` — device milliseconds by kernel class (matmul,
+  attention (both paged-attention kernels), KV scatter, other
+  elementwise/index kernels, copies) from the trace, and each class's
+  share;
 * ``device_busy`` — the union of device activity over the traced serving
   wall time, and its complement, the idle share;
-* ``per_step`` — for steps that carry prefill and for decode-only steps
-  (each executor call is a ``record_function`` span in the traced run):
-  the median host time, the median device-busy time inside the span, and
-  device time by kernel class.
+* ``per_step`` — for steps that carry prefill, decode-only steps and
+  multi-step dispatches (each executor call is a ``record_function`` span
+  in the traced run): the median host time, the median device-busy time
+  inside the span, and device time by kernel class per span; for
+  multi-step dispatches also host and device-busy time per internal step.
 
 The chrome trace is written to ``--out``. Needs one CUDA card and nvcc;
 imports nothing of JAX.
@@ -45,7 +54,8 @@ from repro_torch.engine import PagedTransformerExecutor  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models.weights import init_params  # noqa: E402
 
-CLASSES = (("attention", ("ragged_paged_attention",)),
+CLASSES = (("attention", ("ragged_paged_attention",
+                          "batched_paged_attention")),
            ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_")),
            ("kv_scatter", ("index_put", "indexing_backward", "scatter")))
 
@@ -60,17 +70,24 @@ def classify(name: str, cat: str) -> str:
     return "other_kernels"
 
 
-def run(cfg, params, reqs_seed: int = 3):
-    reqs = cs.make_requests(cfg, 16, (256, 3072), 32, 0.05, seed=reqs_seed,
-                            slo=(10.0, 0.25))
-    eng, _, _, wall = cs.serve(cfg, params, "cuda", reqs, page_size=128,
-                                num_pages=1024, max_pages_per_seq=32)
+WORKLOADS = {"serve16": dict(new_tokens=32, gap=0.05),
+             "decode16": dict(new_tokens=64, gap=0.0)}
+
+
+def run(cfg, params, workload: str, horizon: int, check_sync: bool = False):
+    w = WORKLOADS[workload]
+    reqs = cs.make_requests(cfg, 16, (256, 3072), w["new_tokens"], w["gap"],
+                            seed=3, slo=(10.0, 0.25))
+    served = cs.serve(cfg, params, "cuda", reqs, **cs.SERVE_PAGES,
+                      horizon=horizon, check_sync=check_sync)
+    eng, wall = served.eng, served.wall
     pre = [s.t_end - s.t_start for s in eng.steps if s.n_prefill]
     dec = [s.t_end - s.t_start for s in eng.steps if not s.n_prefill]
     n_out = sum(len(r.generated_tokens) for r in eng.requests.values())
     return {"wall_s": wall, "output_tok_per_s": n_out / wall,
-            "steps": len(eng.steps), "prefill_steps": len(pre),
-            "decode_only_steps": len(dec),
+            "steps": len(eng.steps), "dispatches": served.ex.n_dispatches,
+            "multi_dispatches": len(served.multi),
+            "prefill_steps": len(pre), "decode_only_steps": len(dec),
             "prefill_step_median_s": statistics.median(pre) if pre else None,
             "decode_step_median_s": statistics.median(dec) if dec else None}
 
@@ -88,6 +105,9 @@ def busy_union(spans) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile/serve_trace.json")
+    ap.add_argument("--workload", choices=sorted(WORKLOADS),
+                    default="serve16")
+    ap.add_argument("--horizon", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: no CUDA device")
@@ -97,24 +117,40 @@ def main() -> int:
     cfg = get("h2o-danube-1.8b")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    run(cfg, params)                                   # warm-up
-    print("untraced", json.dumps(run(cfg, params)), flush=True)
+    print("workload", json.dumps({"workload": args.workload,
+                                  "horizon": args.horizon}), flush=True)
+    run(cfg, params, args.workload, args.horizon)            # warm-up
+    print("untraced", json.dumps(run(cfg, params, args.workload,
+                                     args.horizon)), flush=True)
+    if args.horizon > 1:
+        print("untraced_sync_checked", json.dumps(run(
+            cfg, params, args.workload, args.horizon, check_sync=True)),
+            flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     execute = PagedTransformerExecutor.execute
+    execute_multi = PagedTransformerExecutor.execute_multi
+    horizons = []
 
     def spanned(self, plan, requests, now):
         kind = "prefill_step" if plan.prefill_items else "decode_step"
         with torch.profiler.record_function(kind):
             return execute(self, plan, requests, now)
 
+    def spanned_multi(self, plan, requests, now, horizon, **kw):
+        horizons.append(horizon)
+        with torch.profiler.record_function("multi_dispatch"):
+            return execute_multi(self, plan, requests, now, horizon, **kw)
+
     PagedTransformerExecutor.execute = spanned
+    PagedTransformerExecutor.execute_multi = spanned_multi
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            traced = run(cfg, params)
+            traced = run(cfg, params, args.workload, args.horizon)
     finally:
         PagedTransformerExecutor.execute = execute
+        PagedTransformerExecutor.execute_multi = execute_multi
     print("traced", json.dumps(traced), flush=True)
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -141,7 +177,8 @@ def main() -> int:
     # a step's kernels all run inside its span: the step ends on the argmax
     # copy to the host, which waits for the device
     spans = [e for e in events if e.get("cat") == "user_annotation"
-             and e.get("name") in ("prefill_step", "decode_step")]
+             and e.get("name") in ("prefill_step", "decode_step",
+                                   "multi_dispatch")]
     dev.sort(key=lambda e: e["ts"])
     per: dict[str, dict] = {}
     for sp in spans:
@@ -156,13 +193,21 @@ def main() -> int:
             c = classify(e.get("name", ""), e["cat"])
             rec["by_class_ms"][c] = rec["by_class_ms"].get(c, 0.0) \
                 + e["dur"] / 1e3
-    print("per_step", json.dumps({k: {
-        "steps": len(v["host_ms"]),
+    summary = {k: {
+        "spans": len(v["host_ms"]),
         "host_ms_median": statistics.median(v["host_ms"]),
         "device_busy_ms_median": statistics.median(v["busy_ms"]),
-        "device_ms_by_class_per_step": {c: t / len(v["host_ms"])
+        "device_ms_by_class_per_span": {c: t / len(v["host_ms"])
                                         for c, t in v["by_class_ms"].items()}}
-        for k, v in per.items()}))
+        for k, v in per.items()}
+    if "multi_dispatch" in per:
+        # one span and one horizon per execute_multi call of the traced run
+        m, n_steps = per["multi_dispatch"], sum(horizons)
+        summary["multi_dispatch"].update({
+            "internal_steps": n_steps,
+            "host_ms_per_internal_step": sum(m["host_ms"]) / n_steps,
+            "device_busy_ms_per_internal_step": sum(m["busy_ms"]) / n_steps})
+    print("per_step", json.dumps(summary))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
