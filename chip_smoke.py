@@ -31,6 +31,19 @@ nothing of the JAX package. Phases, each printing its own lines:
    as phase 3; table columns past a context point at trash page 0. The
    library yardstick is one SDPA call over the padded batched view with a
    boolean mask.
+3c. quantized kernel vs plain — ``paged_attention_ragged_quant`` (B2)
+   against ``paged_attention_ragged_quant_ref`` on phase 3's steps (a), (b)
+   and (c), pages of 128 and 16, with the pools quantized to int8 and to
+   fp8-e4m3 (per-row f32 scales on scale pages at permuted ids). Gate:
+   max abs error ≤ 1e-4 (both read the same dequantized values; only the
+   fp32 summation order differs), and the error against the fp32 oracle
+   on the unquantized K/V within the DESIGN.md §14 tolerance
+   (tests/test_kernels.py::_quant_attention_tol). Poison: NaN in every
+   scale slot a row may not read and 0x7F bytes (NaN in e4m3fn) in those
+   value slots leave the output bit-identical. Timing as in phase 3; the
+   bound counts 1 byte per K/V element plus 4 per row scale (q, output
+   and tables f32 / int32); the library yardstick is phase 3's SDPA over
+   the dequantized view, dequantized before timing.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -42,6 +55,15 @@ nothing of the JAX package. Phases, each printing its own lines:
    DESIGN.md §12 and §18); ``execute_multi`` ran on the last three. On the
    card every committed horizon and speculative round runs under torch's
    sync debug mode set to raise: no device→host sync before its one copy.
+4c. quantized parity — the same model and requests with ``kv_dtype="int8"``
+   and ``"fp8_e4m3"``: fused tokens equal on card and CPU (first-token
+   logits reported: an element within fp32 noise of a rounding boundary
+   may quantize to the neighbouring step on one device); on the card the
+   fused batched backend, ``mode="sequential"``, ``commit_horizon=4`` and
+   γ=2 with a ``TruncatedSelfDraft(1)`` emit the card's fused single-step
+   tokens of the same dtype (DESIGN.md §11/§12/§18 under §14), horizons
+   under the sync check; B2 launches once per layer per attention pass,
+   B1 and B3 never.
 5. serve — the full 24-layer h2o-danube-1.8b (fp32 weights from a seed)
    serves 16 requests through ``Engine`` + the ``fairbatching`` scheduler +
    the fused ``PagedTransformerExecutor``; every request must finish with
@@ -58,9 +80,16 @@ nothing of the JAX package. Phases, each printing its own lines:
    one, the ragged kernel n_layers per fused dispatch. The share of tokens
    equal to a fused single-step run of the same requests is reported, not
    gated (at 24 random-weight layers a near-tie may flip a token).
+5c. quantized serving — the same model: serve-16 with ``kv_dtype="int8"``
+   and with ``"fp8_e4m3"``, and decode-16 with int8 and
+   ``commit_horizon=8``. Every request finishes with its tokens in
+   [0, vocab); B2 launched n_layers per fused dispatch and n_layers ×
+   horizon per multi-step dispatch, B1 and B3 never. Reports the pools'
+   bytes and the share of tokens equal to the fp32 run (not gated).
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (launches
-summed over every serving phase), and the card's name and power limit.
+summed over every serving phase on the card: 4, 4b, 4c, 5, 5b, 5c), and
+the card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -70,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -90,9 +120,12 @@ from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention, paged_attention_ragged)
+    paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
+from repro_torch.kernels.quant import (  # noqa: E402
+    dequantize_kv, kv_quant_spec, quantize_kv)
 from repro_torch.kernels.ref import (  # noqa: E402
-    paged_attention_ragged_ref, paged_attention_ref)
+    paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
+    paged_attention_ref)
 from repro_torch.models.weights import init_params  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -177,10 +210,12 @@ def make_step(kind: str, page: int, device, seed: int = 0) -> Step:
     return Step(kind, q_lens, pos0, ctx, window, page, args)
 
 
-def step_bound(st: Step) -> dict:
+def step_bound(st: Step, kv_bytes: int = 4, scale_bytes: int = 0) -> dict:
     """Least time for the work this step's data needs: each input byte read
     once, each output byte written once; FLOPs of QK and PV over the keys
-    each row sees."""
+    each row sees. ``kv_bytes`` per K/V element and ``scale_bytes`` per
+    (key, KV head) row scale; a quantized step also reads a scale-table
+    entry per page."""
     q = st.args[0]
     t = q.shape[0]
     g = H // HKV
@@ -196,9 +231,10 @@ def step_bound(st: Step) -> dict:
     n_rows = sum(st.q_lens)
     pages_read = sum(-(-(hi) // st.page) - lo // st.page
                      for lo, hi in map(st.visible, range(len(st.q_lens))))
+    tables = 2 if scale_bytes else 1
     nbytes = (n_rows * H * D * 4                  # q rows owned
-              + keys * HKV * D * 4 * 2            # K and V rows visible
-              + pages_read * 4 + len(st.q_lens) * 4 * 4   # tables, metadata
+              + keys * HKV * (D * kv_bytes + scale_bytes) * 2  # K, V rows
+              + pages_read * 4 * tables + len(st.q_lens) * 4 * 4
               + t * H * D * 4)                    # output, padding included
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS_PER_S * 1e3
@@ -514,6 +550,108 @@ def phase_batched_kernels(device, timer) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the quantized ragged kernel (B2) against its plain version
+# ---------------------------------------------------------------------------
+
+def quantize_step(st: Step, fmt: str, seed: int = 0):
+    """``st``'s pools quantized to ``fmt``, scale pages at permuted ids.
+    Returns (the B2 argument tuple, the dequantized pools (data-page
+    order), the spec)."""
+    q, kp, vp, tables, *meta = st.args
+    spec = kv_quant_spec(fmt, q.device)
+    kq, ks = quantize_kv(kp, spec)
+    vq, vs = quantize_kv(vp, spec)
+    deq = (dequantize_kv(kq, ks), dequantize_kv(vq, vs))
+    perm = torch.as_tensor(np.random.default_rng(seed + 1).permutation(
+        kp.shape[0]), device=q.device)
+    inv = torch.argsort(perm)
+    stables = perm[tables.long()].to(torch.int32)
+    args = (q, kq, vq, ks[inv].contiguous(), vs[inv].contiguous(), tables,
+            stables, *meta)
+    return args, deq, spec
+
+
+def quant_tol(q, kp, vp, spec) -> float:
+    """tests/test_kernels.py::_quant_attention_tol: the §14 bound on the
+    quantized attention's distance from the fp32 oracle."""
+    q1 = float(q.abs().sum(-1).max())
+    kmax, vmax = float(kp.abs().max()), float(vp.abs().max())
+    delta = D ** -0.5 * q1 * kmax * spec.half_step
+    return (math.exp(2.0 * delta) - 1.0) * vmax + vmax * spec.half_step + 1e-6
+
+
+def poisoned_quant(st: Step, qargs):
+    """Copies of the quantized pools with 0x7F bytes (NaN in e4m3fn) in
+    every value slot no row of its sequence may read and NaN in those
+    slots' scales."""
+    _, kq, vq, ks, vs, tables, stables = qargs[:7]
+    kb, vb = kq.view(torch.uint8).clone(), vq.view(torch.uint8).clone()
+    ks2, vs2 = ks.clone(), vs.clone()
+    kv = torch.arange(tables.shape[1] * st.page, device=kq.device)
+    for s in range(len(st.ctx)):
+        lo, _ = st.visible(s)
+        bad = (kv < lo) | (kv >= st.ctx[s])
+        col, slot = kv[bad] // st.page, kv[bad] % st.page
+        kb[tables[s].long()[col], slot] = 0x7F
+        vb[tables[s].long()[col], slot] = 0x7F
+        ks2[stables[s].long()[col], slot] = float("nan")
+        vs2[stables[s].long()[col], slot] = float("nan")
+    return kb.view(kq.dtype), vb.view(vq.dtype), ks2, vs2
+
+
+def check_quant_kernel(st: Step, fmt: str, timer) -> dict:
+    """B2 vs its plain version on ``st`` quantized to ``fmt``; times B2,
+    the plain version and SDPA over the dequantized view."""
+    q, kp, vp, tables, *meta = st.args
+    args, (kd, vd), spec = quantize_step(st, fmt)
+    kern = lambda: paged_attention_ragged_quant(*args, window=st.window)
+    plain = lambda: paged_attention_ragged_quant_ref(*args, window=st.window)
+    got, want = kern(), plain()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{st.name}/{fmt}/page {st.page}: non-finite")
+    err = float((got - want).abs().max())
+    fp32 = paged_attention_ragged_ref(*st.args, window=st.window)
+    err32 = float((got - fp32).abs().max())
+    tol32 = quant_tol(q, kp, vp, spec)
+    del fp32
+    pad = float(got[sum(st.q_lens):].abs().max()) if got.shape[0] > sum(
+        st.q_lens) else 0.0
+    same = torch.equal(paged_attention_ragged_quant(
+        q, *poisoned_quant(st, args), *args[5:], window=st.window), got)
+    # the yardstick reads the dequantized pools: dequantizing is set-up
+    lib_fn, lib_check = library_call(dataclasses.replace(
+        st, args=(q, kd, vd, tables, *meta)))
+    lib_err = lib_check(lib_fn(), want)
+    rec = {"step": st.name, "format": fmt, "page": st.page,
+           "rows": sum(st.q_lens), "seqs": len(st.q_lens),
+           "window": st.window, "max_abs_err": err,
+           "fp32_oracle_max_abs_err": err32, "s14_tolerance": tol32,
+           "pad_rows_max": pad, "poison_ok": same,
+           "library_max_abs_err": lib_err,
+           **step_bound(st, kv_bytes=1, scale_bytes=4)}
+    if err > ATOL_KERNEL or err32 > tol32 or pad != 0.0 or not same:
+        _emit("quant_kernel_step", rec)
+        raise AssertionError(f"{st.name}/{fmt}/page {st.page}: B2 "
+                             f"disagrees with its plain version")
+    rec.update(time_in_turns(timer, kern, plain, lib_fn))
+    return rec
+
+
+def phase_quant_kernels(device, timer) -> list:
+    recs = []
+    for kind in ("a_mixed", "b_decode", "c_window"):
+        for page in (128, 16):
+            st = make_step(kind, page, device)
+            for fmt in ("int8", "fp8_e4m3"):
+                recs.append(check_quant_kernel(st, fmt, timer))
+                _emit("quant_kernel_step", recs[-1])
+            del st
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving through the engine
 # ---------------------------------------------------------------------------
 
@@ -531,7 +669,8 @@ def make_requests(cfg, n: int, prompt_range, new_tokens: int, gap: float,
 
 
 KERNELS = {"paged_attention_ragged": paged_attention_ragged,
-           "paged_attention": paged_attention}
+           "paged_attention": paged_attention,
+           "paged_attention_ragged_quant": paged_attention_ragged_quant}
 # launches of each kernel summed over every serving run on the card
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -569,7 +708,7 @@ def _no_sync(fn):
 def serve(cfg, params, device, requests, *, page_size, num_pages,
           max_pages_per_seq, capture_logits=False, max_steps=20_000,
           mode="fused", horizon=1, gamma=0, draft=None,
-          check_sync=True) -> Served:
+          check_sync=True, kv_dtype="fp32", ragged=True) -> Served:
     """Serve ``requests`` to completion. On the card, with ``check_sync``,
     every committed horizon and speculative round body runs under torch's
     sync debug mode set to raise: it may not wait for the device."""
@@ -577,7 +716,8 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
                                   page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
                                   mode=mode, capture_logits=capture_logits,
-                                  device=device)
+                                  kv_dtype=kv_dtype,
+                                  ragged_attention=ragged, device=device)
     if draft is not None:
         ex.set_draft(draft)
     cuda = torch.device(device).type == "cuda"
@@ -692,6 +832,77 @@ def phase_path_parity(cfg, device, fused_tokens: dict) -> list:
     return recs
 
 
+def attention_passes(run: Served, cfg) -> int:
+    """Attention launches per layer the run's dispatches imply, each one
+    kernel launch: one per fused or sequential dispatch, H per committed
+    horizon, and per speculative round γ draft steps (+ the draft's sync
+    pass) over the draft's layers plus one verify pass over all."""
+    nl = cfg.n_layers
+    draft = run.ex.draft
+    per_multi = sum(h * ((g + draft.needs_sync_pass) * draft.n_layers + nl
+                         if g else nl) for h, g in run.multi)
+    return per_multi + nl * (run.ex.n_dispatches - len(run.multi))
+
+
+def phase_quant_parity(cfg, device) -> list:
+    """Phase 4's weights and requests with quantized KV: fused on the card
+    and the CPU, then every other path on the card, against the card's
+    fused single-step tokens of the same dtype."""
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    paths = {"batched": dict(ragged=False),
+             "sequential": dict(mode="sequential"),
+             "multi_h4": dict(horizon=4),
+             "spec_self_draft": dict(gamma=2, draft=TruncatedSelfDraft)}
+    recs = []
+    for kv in ("int8", "fp8_e4m3"):
+        runs = {}
+        for dev in (device, "cpu"):
+            reqs = make_requests(cfg, 6, (8, 64), 8, 0.01, seed=2)
+            runs[dev] = serve(cfg, params, dev, reqs, capture_logits=True,
+                              kv_dtype=kv, **PARITY_PAGES)
+        d, c = runs[device], runs["cpu"]
+        err = max(float(np.abs(d.first[r] - c.first[r]).max())
+                  for r in c.first)
+        # logits are reported, not gated: K/V rows that differ by fp32
+        # noise between card and CPU may quantize an element to the
+        # neighbouring step, so only the tokens must be equal
+        rec = {"kv_dtype": kv, "path": "fused", "tokens_equal_cpu":
+               d.tokens == c.tokens, "first_logits_max_abs_err": err,
+               "dispatches": d.ex.n_dispatches, "launches": d.launches}
+        ok = d.tokens == c.tokens and d.first.keys() == c.first.keys()
+        runs = {"fused": d}
+        for name, kw in paths.items():
+            kw = dict(kw)
+            make_draft = kw.pop("draft", None)
+            reqs = make_requests(cfg, 6, (8, 64), 8, 0.01, seed=2)
+            runs[name] = serve(cfg, params, device, reqs, kv_dtype=kv,
+                               draft=make_draft(1) if make_draft else None,
+                               **PARITY_PAGES, **kw)
+        _emit("quant_parity", rec)
+        recs.append(rec)
+        for name, run in runs.items():
+            want = attention_passes(run, cfg)
+            prec = {"kv_dtype": kv, "path": name,
+                    "tokens_equal_fused": run.tokens == d.tokens,
+                    "dispatches": run.ex.n_dispatches,
+                    "multi_dispatches": len(run.multi),
+                    "launches": run.launches,
+                    "expected_quant_launches": want}
+            ok &= (prec["tokens_equal_fused"]
+                   and run.launches["paged_attention_ragged_quant"] == want
+                   and run.launches["paged_attention_ragged"] == 0
+                   and run.launches["paged_attention"] == 0)
+            if name in ("multi_h4", "spec_self_draft"):
+                ok &= len(run.multi) >= 1
+            if name != "fused":
+                _emit("quant_path_parity", prec)
+                recs.append(prec)
+        if not ok:
+            raise AssertionError(f"{kv}: card, CPU and paths disagree")
+        del runs, d, c
+    return recs
+
+
 def _check_outputs(run: Served, cfg, new_tokens: int) -> None:
     for r in run.eng.requests.values():
         toks = r.generated_tokens
@@ -770,7 +981,7 @@ def phase_serve_paths(cfg, device, params, serve16_tokens: dict) -> list:
         torch.cuda.reset_peak_memory_stats()
     ref = serve(cfg, params, device, decode16(), **SERVE_PAGES)
     _check_outputs(ref, cfg, 64)
-    decode16_tokens = ref.tokens
+    decode16_tokens = dict(ref.tokens)
     _emit("serve_path", {"workload": "decode16_fused_reference",
                          **_serve_record(ref, decode16(), cfg, cuda),
                          "launches": ref.launches})
@@ -791,15 +1002,11 @@ def phase_serve_paths(cfg, device, params, serve16_tokens: dict) -> list:
         reqs = make()
         run = serve(cfg, params, device, reqs, **SERVE_PAGES, **kw)
         _check_outputs(run, cfg, new_tokens)
-        ex, nl = run.ex, cfg.n_layers
-        draft = ex.draft
-        # a speculative round: γ draft steps (+ the sync pass) over the
-        # draft's layers, one verify pass over the target's
-        want_b3 = sum(h * ((g + draft.needs_sync_pass) * draft.n_layers + nl
-                           if g else nl) for h, g in run.multi)
-        want_b1 = nl * (ex.n_dispatches - len(run.multi))
-        if ex.mode == "sequential":
-            want_b3, want_b1 = nl * ex.n_dispatches, 0
+        ex, draft = run.ex, run.ex.draft
+        # fused single steps launch B1, every other pass B3
+        want_b1 = (0 if ex.mode == "sequential"
+                   else cfg.n_layers * (ex.n_dispatches - len(run.multi)))
+        want_b3 = attention_passes(run, cfg) - want_b1
         rec = {"workload": name, **_serve_record(run, reqs, cfg, cuda),
                "multi_dispatches": len(run.multi),
                "multi_steps": sum(h for h, _ in run.multi),
@@ -820,6 +1027,57 @@ def phase_serve_paths(cfg, device, params, serve16_tokens: dict) -> list:
             raise AssertionError(f"{name}: no multi-step dispatch ran")
         recs.append(rec)
         del run, ex, draft
+    return recs, decode16_tokens
+
+
+def pool_bytes(ex) -> int:
+    """Bytes of the executor's K/V pools and, quantized, scale pools."""
+    pools = [ex.k_pages, ex.v_pages, ex.k_scales, ex.v_scales]
+    return sum(p.numel() * p.element_size() for p in pools if p is not None)
+
+
+def phase_quant_serve(cfg, device, params, serve16_tokens: dict,
+                      decode16_tokens: dict) -> list:
+    """Full depth with quantized KV: serve-16 in int8 and fp8-e4m3,
+    decode-16 in int8 with ``commit_horizon=8``; B2 carries every
+    attention pass."""
+    cuda = torch.device(device).type == "cuda"
+    workloads = [
+        ("serve16_int8", 16, 32, 0.05, serve16_tokens,
+         dict(kv_dtype="int8")),
+        ("serve16_fp8", 16, 32, 0.05, serve16_tokens,
+         dict(kv_dtype="fp8_e4m3")),
+        ("decode16_int8_multi_h8", 16, 64, 0.0, decode16_tokens,
+         dict(kv_dtype="int8", horizon=8)),
+    ]
+    recs = []
+    for name, n, new_tokens, gap, ref_tokens, kw in workloads:
+        if cuda:
+            _release_memory()
+            torch.cuda.reset_peak_memory_stats()
+        reqs = make_requests(cfg, n, (256, 3072), new_tokens, gap, seed=3,
+                             slo=(10.0, 0.25))
+        run = serve(cfg, params, device, reqs, **SERVE_PAGES, **kw)
+        _check_outputs(run, cfg, new_tokens)
+        want = attention_passes(run, cfg)
+        rec = {"workload": name, **_serve_record(run, reqs, cfg, cuda),
+               "kv_dtype": kw["kv_dtype"], "pool_bytes": pool_bytes(run.ex),
+               "multi_dispatches": len(run.multi),
+               "quant_launches": run.launches["paged_attention_ragged_quant"],
+               "expected_quant_launches": want,
+               "fp32_kernel_launches": run.launches["paged_attention_ragged"]
+               + run.launches["paged_attention"],
+               "share_tokens_equal_fp32": _share_equal(run.tokens,
+                                                       ref_tokens)}
+        _emit("quant_serve", rec)
+        if (rec["quant_launches"] != want or want == 0
+                or rec["fp32_kernel_launches"] != 0):
+            raise AssertionError(f"{name}: launches do not match the "
+                                 f"dispatches")
+        if kw.get("horizon", 1) > 1 and not run.multi:
+            raise AssertionError(f"{name}: no multi-step dispatch ran")
+        recs.append(rec)
+        del run
     return recs
 
 
@@ -851,9 +1109,11 @@ def main() -> int:
 
     recs = phase_kernels("cuda", cuda_timer)
     brecs = phase_batched_kernels("cuda", cuda_timer)
+    qrecs = phase_quant_kernels("cuda", cuda_timer)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
+    phase_quant_parity(small, "cuda")
     cfg = get("h2o-danube-1.8b")
     _release_memory()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -864,10 +1124,13 @@ def main() -> int:
         raise AssertionError(
             f"attention launches {serve_rec['attention_launches']} != "
             f"{cfg.n_layers} x {serve_rec['dispatches']} dispatches")
-    phase_serve_paths(cfg, "cuda", params, serve16_tokens)
+    _, decode16_tokens = phase_serve_paths(cfg, "cuda", params,
+                                           serve16_tokens)
+    phase_quant_serve(cfg, "cuda", params, serve16_tokens, decode16_tokens)
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     main_brec = brecs[0]          # step (d), pages of 128: decode batches
+    main_qrec = qrecs[0]          # step (a), int8, pages of 128
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -884,7 +1147,16 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in brecs),
         "ms": main_brec["ms"], "plain_ms": main_brec["plain_ms"],
         "bound_ms": main_brec["bound_ms"], "bound_by": main_brec["bound_by"],
-        "library_ms": main_brec["library_ms"]}]
+        "library_ms": main_brec["library_ms"]}, {
+        "name": "paged_attention_ragged_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/"
+                  "paged_attention_ragged_quant.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:309",
+        "launches": SERVING_LAUNCHES["paged_attention_ragged_quant"],
+        "max_abs_err": max(r["max_abs_err"] for r in qrecs),
+        "ms": main_qrec["ms"], "plain_ms": main_qrec["plain_ms"],
+        "bound_ms": main_qrec["bound_ms"], "bound_by": main_qrec["bound_by"],
+        "library_ms": main_qrec["library_ms"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

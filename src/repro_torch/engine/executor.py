@@ -19,21 +19,25 @@
   launch loop as the parity oracle; ``execute_multi`` runs committed
   multi-step decode (DESIGN.md §12) and, with a draft installed by
   ``set_draft``, speculative rounds (§18), each horizon as one dispatch
-  with a single device→host copy at its end. Every kernel is hand-written
-  CUDA on the card and its plain PyTorch version on the CPU. The time a
-  step returns ends after the device finished it (the copy of its tokens
-  to the host synchronizes).
+  with a single device→host copy at its end. ``kv_dtype="int8"`` or
+  ``"fp8_e4m3"`` stores the pools quantized with f32 row scales in scale
+  pages (DESIGN.md §14) on every one of these paths: K/V quantize on
+  scatter, the fused step attends through the quantized ragged kernel and
+  the batched paths through the quantized batched op, which flattens into
+  that kernel on the card. Every kernel is hand-written CUDA on the card
+  and its plain PyTorch version on the CPU. The time a step returns ends
+  after the device finished it (the copy of its tokens to the host
+  synchronizes).
 
-Not ported yet (each raises ``NotImplementedError``): quantized KV
-(``kv_dtype != "fp32"``, kernel B2), ``mesh`` sharding, the MoE family and
-``attach_cache`` (the prefix cache).
+Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding,
+the MoE family and ``attach_cache`` (the prefix cache).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,7 +46,10 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..core.cost_model import LinearCostModel
 from ..core.types import BatchPlan
-from ..kernels.ops import paged_attention_op, paged_attention_ragged_op
+from ..kernels.ops import (paged_attention_op, paged_attention_quant_op,
+                           paged_attention_ragged_op,
+                           paged_attention_ragged_quant_op)
+from ..kernels.quant import QuantSpec, kv_quant_spec, quantize_kv, raw_pool
 from ..models.layers import attn_qkv, mlp_apply
 from ..models.module import rmsnorm
 from ..models.weights import params_to
@@ -161,27 +168,68 @@ def kv_slots(table, positions, page_size: int, valid=None):
             (positions % page_size).reshape(-1).long())
 
 
+class ScalePools(NamedTuple):
+    """The quantized side of a paged forward (DESIGN.md §14): the storage
+    spec, the f32 scale pools (L, P, page, Hkv) and the scale tables
+    (B, n_pages) parallel to the block tables."""
+    spec: QuantSpec
+    k: torch.Tensor
+    v: torch.Tensor
+    tables: torch.Tensor
+
+
+def scatter_kv(pages, x, idx, spec: Optional[QuantSpec] = None,
+               scale_pages=None, sidx=None) -> None:
+    """Write K or V rows x (N, Hkv, D) into one layer's pool at the flat
+    (page, slot) index ``idx``, in place. With ``spec`` the rows quantize
+    on scatter and their f32 row scales land in ``scale_pages`` at
+    ``sidx`` (the scale-page twin of ``idx``)."""
+    if spec is None:
+        pages.index_put_(idx, x)
+        return
+    xq, xs = quantize_kv(x, spec)
+    raw_pool(pages).index_put_(idx, raw_pool(xq))
+    scale_pages.index_put_(sidx, xs)
+
+
 def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
                   positions, tables, ctx_lens, page_size: int, valid=None,
-                  n_layers: Optional[int] = None):
+                  n_layers: Optional[int] = None,
+                  scales: Optional[ScalePools] = None):
     """Dense-family forward over paged KV, one batched attention launch per
     layer. x: (B, T, d); positions: (B, T); tables: (B, n_pages); ctx_lens:
     (B,) int32; ``layers`` the per-layer weight dicts over the pools'
     leading layer dim. ``n_layers`` truncates the stack (early-exit draft
-    pass, DESIGN.md §18); None runs it all. K/V writes land in the pools in
-    place (``index_put_``), where JAX's ``.at[].set`` returns new pools;
-    their (page, slot) targets are the same in every layer, so they are
-    gathered once. Returns the hidden states (B, T, d)."""
+    pass, DESIGN.md §18); None runs it all. ``scales`` makes the pools
+    quantized (DESIGN.md §14): K/V quantize on scatter, with invalid rows'
+    scales on trash scale page 0, and attention dequantizes. K/V writes
+    land in the pools in place (``index_put_``), where JAX's ``.at[].set``
+    returns new pools; their (page, slot) targets are the same in every
+    layer, so they are gathered once. Returns the hidden states (B, T,
+    d)."""
     q_starts = positions[:, 0].contiguous()
     idx = kv_slots(tables, positions, page_size, valid)
+    spec = sidx = sk = sv = None
+    if scales is not None:
+        spec = scales.spec
+        sidx = kv_slots(scales.tables, positions, page_size, valid)
     for l in range(len(layers) if n_layers is None else n_layers):
         lp = layers[l]
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn_qkv(lp["attn"], h, positions, cfg)
-        k_pages[l].index_put_(idx, k.reshape(-1, *k.shape[2:]))
-        v_pages[l].index_put_(idx, v.reshape(-1, *v.shape[2:]))
-        o = paged_attention_op(q, k_pages[l], v_pages[l], tables, ctx_lens,
-                               q_starts, window=cfg.window)
+        if scales is not None:
+            sk, sv = scales.k[l], scales.v[l]
+        scatter_kv(k_pages[l], k.reshape(-1, *k.shape[2:]), idx, spec, sk,
+                   sidx)
+        scatter_kv(v_pages[l], v.reshape(-1, *v.shape[2:]), idx, spec, sv,
+                   sidx)
+        if scales is None:
+            o = paged_attention_op(q, k_pages[l], v_pages[l], tables,
+                                   ctx_lens, q_starts, window=cfg.window)
+        else:
+            o = paged_attention_quant_op(q, k_pages[l], v_pages[l], sk, sv,
+                                         tables, scales.tables, ctx_lens,
+                                         q_starts, window=cfg.window)
         x = x + o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
         x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
     return x
@@ -197,7 +245,8 @@ def layer_views(params: dict, n_layers: int) -> list:
 
 
 class PagedTransformerExecutor:
-    """Real hybrid-step executor over a paged KV cache (dense GQA, fp32).
+    """Real hybrid-step executor over a paged KV cache (dense GQA, fp32
+    weights and activations; fp32, int8 or fp8-e4m3 KV).
 
     ``params`` is the JAX package's parameter tree as tensors
     (``models.weights.params_from_numpy`` or ``init_params``); it is moved
@@ -217,8 +266,6 @@ class PagedTransformerExecutor:
         self.device = resolve_device(device)
         if mode not in ("fused", "sequential"):
             raise ValueError(f"unknown mode {mode!r}")
-        if kv_dtype != "fp32":
-            raise _later(f"kv_dtype={kv_dtype!r}", "queue A6, kernel B2")
         if mesh is not None:
             raise _later("mesh sharding", "queue A13")
         if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
@@ -243,10 +290,29 @@ class PagedTransformerExecutor:
         self.max_pages = max_pages_per_seq
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                  cfg.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=torch.float32,
-                                   device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=torch.float32,
-                                   device=self.device)
+        # quantized paged KV (DESIGN.md §14): values stored int8/fp8 in the
+        # data pages, per-(token, kv-head) f32 scales in the allocator's
+        # scale pages; None = unquantized fp32 storage
+        self.kv_dtype = kv_dtype
+        self.qspec = kv_quant_spec(kv_dtype, self.device)
+        if self.qspec is None:
+            self.k_pages = torch.zeros(shape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_pages = torch.zeros(shape, dtype=torch.float32,
+                                       device=self.device)
+            self.k_scales = self.v_scales = None
+        else:
+            # zero bytes are 0 in int8 and in e4m3fn
+            self.k_pages, self.v_pages = (
+                torch.zeros(shape, dtype=torch.uint8, device=self.device)
+                .view(self.qspec.dtype) for _ in range(2))
+            self.k_scales = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=self.device)
+            self.v_scales = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=self.device)
+            # pad tokens redirect scales to the trash page's scale page,
+            # which the construction order above pins to id 0
+            assert self.alloc.scale_of[0] == 0
         # speculative decode (DESIGN.md §18): a draft adapter installed via
         # set_draft() enables execute_multi(speculate=γ); force_reject
         # zeroes every acceptance on the device (the parity edge case)
@@ -280,33 +346,40 @@ class PagedTransformerExecutor:
         return rmsnorm(h_last, p["ln_f"], self.cfg.norm_eps) @ p["head"]
 
     def _forward(self, x, positions, tables, ctx_lens, valid=None,
-                 n_layers=None):
-        """Paged forward over the executor's pools (``paged_forward``)."""
+                 n_layers=None, stables=None):
+        """Paged forward over the executor's pools (``paged_forward``);
+        ``stables`` the scale tables parallel to ``tables`` when the pools
+        are quantized."""
+        scales = None if self.qspec is None else ScalePools(
+            self.qspec, self.k_scales, self.v_scales, stables)
         return paged_forward(self.cfg, self._layers, self.k_pages,
                              self.v_pages, x, positions, tables, ctx_lens,
-                             self.page_size, valid, n_layers)
+                             self.page_size, valid, n_layers, scales)
 
     @torch.no_grad()
     def _chunk_step(self, st: dict, n_valid: int) -> torch.Tensor:
         """One prefill chunk, B=1 (sequential mode). ``st``: tokens and
         positions (n_tok,) — pad tokens keep monotone positions (the causal
         mask stays exact) but their K/V lands on the trash page — table
-        (max_pages,), ctx (1,) excluding the pad. Returns the last real
-        token's logits (vocab,)."""
+        (max_pages,), ctx (1,) excluding the pad, and when quantized the
+        scale table ``stable`` (max_pages,). Returns the last real token's
+        logits (vocab,)."""
         n_tok = st["tokens"].shape[0]
         x = self._embed(st["tokens"])[None]                # (1, T, d)
         valid = (torch.arange(n_tok, device=self.device) < n_valid)[None]
+        stable = st.get("stable")
         x = self._forward(x, st["positions"][None], st["table"][None],
-                          st["ctx"], valid)
+                          st["ctx"], valid,
+                          stables=None if stable is None else stable[None])
         return self._head(x[0, max(n_valid - 1, 0)])
 
     @torch.no_grad()
     def _decode_step(self, st: dict) -> torch.Tensor:
-        """One decode token per row: tokens/positions/ctx (B,), tables
-        (B, max_pages). Returns logits (B, vocab)."""
+        """One decode token per row: tokens/positions/ctx (B,), tables (and
+        when quantized stables) (B, max_pages). Returns logits (B, vocab)."""
         x = self._embed(st["tokens"])[:, None]            # (B, 1, d)
         x = self._forward(x, st["positions"][:, None], st["tables"],
-                          st["ctx"])
+                          st["ctx"], stables=st.get("stables"))
         return self._head(x[:, 0])
 
     @torch.no_grad()
@@ -325,7 +398,7 @@ class PagedTransformerExecutor:
         for h in range(horizon):
             x = self._embed(tokens)[:, None]              # (B, 1, d)
             x = self._forward(x, (positions + h)[:, None], st["tables"],
-                              ctx + h)
+                              ctx + h, stables=st.get("stables"))
             tokens = self._head(x[:, 0]).argmax(-1).to(torch.int32)
             emitted.append(tokens)
         return torch.stack(emitted)
@@ -355,6 +428,7 @@ class PagedTransformerExecutor:
         G = gamma + 1
         cur_tok, cur_pos, cur_ctx = st["tokens"], st["positions"], st["ctx"]
         tables, max_emit = st["tables"], st["max_emit"]
+        stables = st.get("stables")
         bsz = cur_tok.shape[0]
         dev = cur_tok.device
         counts = torch.zeros(bsz, dtype=torch.int32, device=dev)
@@ -368,17 +442,19 @@ class PagedTransformerExecutor:
             feed = [cur_tok]
             tok = cur_tok
             for j in range(gamma):
-                logits = draft.step(tok, cur_pos + j, tables, cur_ctx + j)
+                logits = draft.step(tok, cur_pos + j, tables, stables,
+                                    cur_ctx + j)
                 tok = logits.argmax(-1).to(torch.int32)
                 feed.append(tok)
             if draft.needs_sync_pass:
                 # write the last draft token's own draft-KV so a fully-
                 # accepting sequence enters the next round with complete
                 # draft context (logits discarded)
-                draft.step(tok, cur_pos + gamma, tables, cur_ctx + gamma)
+                draft.step(tok, cur_pos + gamma, tables, stables,
+                           cur_ctx + gamma)
             feed = torch.stack(feed, dim=1)                   # (B, G)
             x = self._forward(self._embed(feed), cur_pos[:, None] + steps,
-                              tables, cur_ctx + gamma)
+                              tables, cur_ctx + gamma, stables=stables)
             tgt = self._head(x).argmax(-1).to(torch.int32)    # (B, G)
             match = (feed[:, 1:] == tgt[:, :-1]).to(torch.int32)
             if force_reject:
@@ -405,36 +481,54 @@ class PagedTransformerExecutor:
         positions, tok_pages, tok_slots (T,) — the packed stream, padding →
         trash page; tables (S, pg_bucket); ctx, q_starts, q_lens, pos0,
         last_idx (S,); for the batched backend also seq_gather (S, Tq) and
-        pack_gather (T,), the packed↔per-sequence row maps. Per layer: one
-        K/V scatter for every sequence's writes and one attention launch;
-        at the top one head projection over each sequence's last-token
-        hidden state. Returns the logits (S, vocab).
+        pack_gather (T,), the packed↔per-sequence row maps; when quantized
+        also tok_spages (T,) and stables (S, pg_bucket), the scale-page
+        routing (DESIGN.md §14). Per layer: one K/V scatter for every
+        sequence's writes and one attention launch; at the top one head
+        projection over each sequence's last-token hidden state. Returns
+        the logits (S, vocab).
         """
         cfg = self.cfg
+        spec = self.qspec
         x = self._embed(st["tokens"])                      # (T, d)
         pos2d = st["positions"][None]
-        tok_pages = st["tok_pages"].long()
-        tok_slots = st["tok_slots"].long()
+        idx = (st["tok_pages"].long(), st["tok_slots"].long())
+        sidx = sk = sv = None
+        if spec is not None:
+            sidx = (st["tok_spages"].long(), idx[1])
         if not self.ragged_attention:
             seq_gather = st["seq_gather"].long()           # (S, Tq)
             pack_gather = st["pack_gather"].long()         # (T,)
         for l, lp in enumerate(self._layers):
             h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = attn_qkv(lp["attn"], h[None], pos2d, cfg)
+            kp, vp = self.k_pages[l], self.v_pages[l]
+            if spec is not None:
+                sk, sv = self.k_scales[l], self.v_scales[l]
             # in place, where JAX's .at[].set returns new pools. Pad tokens
-            # all write trash page 0, slot 0: those duplicates are harmless
-            # because attention never reads that page.
-            self.k_pages[l].index_put_((tok_pages, tok_slots), k[0])
-            self.v_pages[l].index_put_((tok_pages, tok_slots), v[0])
+            # all write trash page 0, slot 0 (and trash scale page 0): those
+            # duplicates are harmless because attention never reads them.
+            scatter_kv(kp, k[0], idx, spec, sk, sidx)
+            scatter_kv(vp, v[0], idx, spec, sv, sidx)
             if self.ragged_attention:
-                o = paged_attention_ragged_op(
-                    q[0], self.k_pages[l], self.v_pages[l], st["tables"],
-                    st["ctx"], st["q_starts"], st["q_lens"], st["pos0"],
-                    window=cfg.window)
+                meta = (st["ctx"], st["q_starts"], st["q_lens"], st["pos0"])
+                if spec is None:
+                    o = paged_attention_ragged_op(q[0], kp, vp, st["tables"],
+                                                  *meta, window=cfg.window)
+                else:
+                    o = paged_attention_ragged_quant_op(
+                        q[0], kp, vp, sk, sv, st["tables"], st["stables"],
+                        *meta, window=cfg.window)
             else:
-                ov = paged_attention_op(
-                    q[0][seq_gather], self.k_pages[l], self.v_pages[l],
-                    st["tables"], st["ctx"], st["pos0"], window=cfg.window)
+                qv = q[0][seq_gather]
+                if spec is None:
+                    ov = paged_attention_op(qv, kp, vp, st["tables"],
+                                            st["ctx"], st["pos0"],
+                                            window=cfg.window)
+                else:
+                    ov = paged_attention_quant_op(
+                        qv, kp, vp, sk, sv, st["tables"], st["stables"],
+                        st["ctx"], st["pos0"], window=cfg.window)
                 o = ov.reshape(-1, *ov.shape[2:])[pack_gather]
             x = x + o.reshape(t_bucket, cfg.q_dim) @ lp["attn"]["wo"]
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
@@ -456,13 +550,24 @@ class PagedTransformerExecutor:
         return tbl
 
     def _mirror_cow_batched(self) -> None:
-        """Drain every pending COW event as one gather/scatter per pool."""
-        old, new, _, _ = self.alloc.pop_cow_events_batched()
+        """Drain every pending COW event as one gather/scatter per pool.
+
+        Scale pages copy in the same drain (DESIGN.md §14): the allocator
+        paired each COW'd data page with a fresh scale page, so values and
+        their dequant scales stay in lock-step."""
+        old, new, s_old, s_new = self.alloc.pop_cow_events_batched()
         if old:
-            src = torch.as_tensor(old, dtype=torch.long, device=self.device)
-            dst = torch.as_tensor(new, dtype=torch.long, device=self.device)
-            self.k_pages[:, dst] = self.k_pages[:, src]
-            self.v_pages[:, dst] = self.v_pages[:, src]
+            def ids(a):
+                return torch.as_tensor(a, dtype=torch.long,
+                                       device=self.device)
+            src, dst = ids(old), ids(new)
+            for pool in (self.k_pages, self.v_pages):
+                raw = raw_pool(pool)
+                raw[:, dst] = raw[:, src]
+            if self.qspec is not None:
+                s_src, s_dst = ids(s_old), ids(s_new)
+                self.k_scales[:, s_dst] = self.k_scales[:, s_src]
+                self.v_scales[:, s_dst] = self.v_scales[:, s_src]
             if self.draft is not None:
                 # draft pools index the same global page ids (DESIGN.md §18)
                 self.draft.mirror_cow(src, dst)
@@ -500,12 +605,19 @@ class PagedTransformerExecutor:
         assert pad >= 0, "max_pages_per_seq exceeded"
         return np.asarray(tbl + [0] * pad, np.int32)
 
+    def _stable(self, req_id: int) -> np.ndarray:
+        """The request's scale-page table, parallel to ``_table``
+        (DESIGN.md §14); quantized executors only."""
+        stbl = self.alloc.scale_table(req_id)
+        return np.asarray(stbl + [0] * (self.max_pages - len(stbl)), np.int32)
+
     def _stage_decode(self, ids: list, requests, tokens: list,
                       bsz: int, **extra) -> dict:
         """A decode batch padded to ``bsz`` rows: tokens (the fed-back
-        ones), positions, ctx (B,), tables (B, max_pages), plus ``extra``
-        (B,) columns whose pad rows are 0. Pad rows read and write only the
-        trash page (table 0, position 0, context 1)."""
+        ones), positions, ctx (B,), tables (and when quantized stables)
+        (B, max_pages), plus ``extra`` (B,) columns whose pad rows are 0.
+        Pad rows read and write only the trash page and its scale page
+        (table 0, position 0, context 1)."""
         a = {"tokens": np.zeros(bsz, np.int32),
              "positions": np.zeros(bsz, np.int32),
              "ctx": np.ones(bsz, np.int32),
@@ -518,6 +630,10 @@ class PagedTransformerExecutor:
             a["positions"][i] = req.context - 1
             a["ctx"][i] = req.context
             a["tables"][i] = self._table(rid)
+        if self.qspec is not None:
+            a["stables"] = np.zeros((bsz, self.max_pages), np.int32)
+            for i, rid in enumerate(ids):
+                a["stables"][i] = self._stable(rid)
         for name, col in extra.items():
             a[name] = np.zeros(bsz, np.int32)
             a[name][:len(col)] = col
@@ -696,7 +812,8 @@ class PagedTransformerExecutor:
         Block tables stage at ``pg_bucket`` columns — the step's pages
         bucket, not ``max_pages`` — so attention never scores table padding
         the mask would discard anyway. The batched backend also stages the
-        packed↔per-sequence row maps."""
+        packed↔per-sequence row maps, and a quantized executor the
+        scale-page routing (tok_spages, stables)."""
         key = (t_bucket, s_bucket, tq_bucket, pg_bucket)
         hit = self._staging.get(key)
         if hit is not None:
@@ -710,6 +827,9 @@ class PagedTransformerExecutor:
         if not self.ragged_attention:
             shapes.update(seq_gather=(s_bucket, tq_bucket),
                           pack_gather=(t_bucket,))
+        if self.qspec is not None:
+            shapes.update(tok_spages=(t_bucket,),
+                          stables=(s_bucket, pg_bucket))
         flat = np.zeros(sum(math.prod(s) for s in shapes.values()), np.int32)
         views, off = {}, 0
         for name, shape in shapes.items():
@@ -788,6 +908,10 @@ class PagedTransformerExecutor:
             if not self.ragged_attention:
                 st["seq_gather"][i, :n] = np.arange(off, off + n)
                 st["pack_gather"][off:off + n] = i * tq_bucket + np.arange(n)
+            if self.qspec is not None:
+                stbl = np.asarray(self.alloc.scale_table(s.req_id), np.int32)
+                st["tok_spages"][off:off + n] = stbl[pos // self.page_size]
+                st["stables"][i, :len(stbl)] = stbl
             off += n
 
         self.n_dispatches += 1
@@ -823,11 +947,14 @@ class PagedTransformerExecutor:
                 continue
             chunk = req.tokens[req.prefilled:req.prefilled + it.n_tokens]
             n_tok = _bucket(len(chunk), 16)
-            st = self._stage({
+            arrays = {
                 "tokens": chunk + [0] * (n_tok - len(chunk)),
                 "positions": np.arange(req.prefilled, req.prefilled + n_tok),
                 "table": self._table(it.req_id),
-                "ctx": [req.prefilled + len(chunk)]})
+                "ctx": [req.prefilled + len(chunk)]}
+            if self.qspec is not None:
+                arrays["stable"] = self._stable(it.req_id)
+            st = self._stage(arrays)
             self.n_dispatches += 1
             self.compile_keys.add(("chunk", n_tok))
             logits = self._chunk_step(st, len(chunk))

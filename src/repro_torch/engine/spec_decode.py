@@ -16,12 +16,16 @@ round, no draft state is threaded through the round:
 
 * ``TruncatedSelfDraft`` — early-exit self-speculation: the first ``n_layers``
   of the target model plus the target's own head. Its K/V writes land in the
-  MAIN page pools; that is safe because the verify pass rewrites the same
-  (layer, position) slots before any attention reads them, and rejected
-  positions are overwritten before any later pass can attend to them.
+  MAIN page pools — quantized, with their scale pages, when the target's
+  are (DESIGN.md §14); that is safe because the verify pass rewrites the
+  same (layer, position) slots before any attention reads them, and
+  rejected positions are overwritten before any later pass can attend to
+  them.
 * ``SmallModelDraft`` — a separate (smaller) model with its OWN fp32 page
-  pools, indexed by the SAME global page ids as the target's allocator so
-  block tables are shared verbatim. It keeps a host-side coverage map and
+  pools, whatever the target's ``kv_dtype`` (the JAX package's
+  ``draft_forward`` is the target's forward "minus quantization"), indexed
+  by the SAME global page ids as the target's allocator so block tables
+  are shared verbatim. It keeps a host-side coverage map and
   backfills draft-KV for any context it has not seen (admission after the
   target prefilled, rollback, migration) with a chunked prefill pass before
   the speculative dispatch.
@@ -96,12 +100,13 @@ class TruncatedSelfDraft:
 
     # -- round hook (device work only) ----------------------------------
 
-    def step(self, tok, pos, tables, ctx_lens) -> torch.Tensor:
-        """One Tq=1 draft step: tok/pos/ctx_lens (B,), tables (B, n_pages).
-        Returns logits (B, vocab)."""
+    def step(self, tok, pos, tables, stables, ctx_lens) -> torch.Tensor:
+        """One Tq=1 draft step: tok/pos/ctx_lens (B,), tables (B, n_pages)
+        and the scale tables parallel to them (None when the target's pools
+        are fp32). Returns logits (B, vocab)."""
         ex = self._ex
         x = ex._forward(ex._embed(tok)[:, None], pos[:, None], tables,
-                        ctx_lens, n_layers=self.n_layers)
+                        ctx_lens, n_layers=self.n_layers, stables=stables)
         return ex._head(x[:, 0])
 
     # -- host-side lifecycle hooks (all no-ops: no private state) -------
@@ -174,7 +179,9 @@ class SmallModelDraft:
 
     # -- round hook (device work only) ----------------------------------
 
-    def step(self, tok, pos, tables, ctx_lens) -> torch.Tensor:
+    def step(self, tok, pos, tables, stables, ctx_lens) -> torch.Tensor:
+        """One Tq=1 draft step over the draft's own fp32 pools; the
+        target's scale tables (``stables``) do not apply to them."""
         x = self.params["embed"][tok.long()][:, None]
         x = paged_forward(self.cfg, self._layers, self.dk, self.dv, x,
                           pos[:, None], tables, ctx_lens, self.page_size)

@@ -1,5 +1,7 @@
-// One block's tile of paged attention, fp32, shared by the ragged kernel
-// (paged_attention_ragged.cu) and the batched kernel (paged_attention.cu).
+// One block's tile of paged attention, shared by the ragged kernels
+// (ragged_kernel.cuh: paged_attention_ragged.cu in fp32 and
+// paged_attention_ragged_quant.cu in int8 / fp8-e4m3) and the batched
+// kernel (paged_attention.cu, fp32).
 //
 // A tile is up to kVecs = 16 query vectors of one sequence and one KV head:
 // n_rows consecutive query rows (rows H * D floats apart, from q_rows) times
@@ -18,13 +20,31 @@
 // vectors 4w..4w+3: lane j scores key j against them (row max and sum are
 // warp shuffles), then 8 lanes per vector accumulate P.V over D in float4
 // registers. Online softmax in fp32 with expf; out = acc / max(l, 1e-30)
-// as in the Pallas flush. K/V rows move as float4 with an odd float4
-// stride in shared memory (conflict-free for D = 80, not a power of two).
+// as in the Pallas flush. K/V rows land in shared memory as float4 with
+// an odd float4 stride (conflict-free for D = 80, not a power of two).
+//
+// The pool element type T is float, int8_t or __nv_fp8_e4m3. Only the K/V
+// load differs: a quantized row moves as 4-byte groups of 4 values (D
+// bytes instead of 4 D), is widened to float4 and multiplied by the row's
+// f32 scale, k = float(k_q) * k_scale[row], as the JAX kernel dequantizes
+// after its DMA (DESIGN.md §14); everything after the load is the fp32
+// tile. The scales of a tile's keys are read once per key, through
+// stable[kv_pos / page_size], into shared memory before the barrier that
+// precedes each key tile; the tile's value groups are loaded into
+// registers before that barrier too, so scales and values arrive in one
+// round trip to device memory, and are widened and scaled after it. For
+// T = float the scale arguments are unused and `if constexpr` keeps every
+// scale operation out of the code, so the fp32 kernels keep their
+// arithmetic and their load loop.
 //
 // Every thread of the block must call attend_tile (it synchronises).
 #pragma once
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace attn_tile {
 
@@ -54,16 +74,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// 4 quantized values (one 4-byte group of a row, lowest byte first)
+// widened to fp32 and times the row's scale s.
+__device__ __forceinline__ float4 widen4(uint32_t g, float s, int8_t) {
+  return make_float4(static_cast<float>(static_cast<int8_t>(g)) * s,
+                     static_cast<float>(static_cast<int8_t>(g >> 8)) * s,
+                     static_cast<float>(static_cast<int8_t>(g >> 16)) * s,
+                     static_cast<float>(static_cast<int8_t>(g >> 24)) * s);
+}
+
+__device__ __forceinline__ float4 widen4(uint32_t g, float s, __nv_fp8_e4m3) {
+  __nv_fp8x4_e4m3 v;
+  v.__x = g;
+  const float4 f = static_cast<float4>(v);
+  return make_float4(f.x * s, f.y * s, f.z * s, f.w * s);
+}
+
+// k_scales / v_scales: (Ps, page_size, Hkv) f32 scale pools and stable the
+// scale table parallel to table; read only when T is a quantized type.
+template <typename T>
 __device__ __forceinline__ void attend_tile(
     const float* __restrict__ q_rows, float* __restrict__ out_rows,
     int n_rows, int qpos0, int ctx, const int* __restrict__ table,
-    int n_pages, const float* __restrict__ k_pages,
-    const float* __restrict__ v_pages, int H, int Hkv, int D,
-    int page_size, int hk, int window, float scale) {
+    int n_pages, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ stable,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+    int H, int Hkv, int D, int page_size, int hk, int window, float scale) {
+  constexpr bool kQuant = !std::is_same<T, float>::value;
   __shared__ __align__(16) float4 sK[kKeys * kMaxStride4];
   __shared__ __align__(16) float4 sV[kKeys * kMaxStride4];
   __shared__ __align__(16) float4 sQ[kVecs * kMaxD4];
   __shared__ float sP[kVecs][kKeys + 1];
+  __shared__ float sKs[kKeys], sVs[kKeys];  // the tile's K/V row scales
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -115,20 +157,64 @@ __device__ __forceinline__ void attend_tile(
 
   for (int kb = kv_begin; kb < kv_end; kb += kKeys) {
     const int nk = min(kKeys, kv_end - kb);
-    __syncthreads();  // the previous tile is consumed (and sQ is written)
-    for (int i = tid; i < kKeys * D4; i += kThreads) {
-      const int j = i / D4, c = i % D4;
-      float4 kval = make_float4(0.f, 0.f, 0.f, 0.f), vval = kval;
-      if (j < nk) {  // only keys below kv_end are ever loaded
-        const int kv = kb + j;
-        const int pg = table[kv / page_size];
-        const size_t off =
-            (((size_t)pg * page_size + kv % page_size) * Hkv + hk) * D;
-        kval = reinterpret_cast<const float4*>(k_pages + off)[c];
-        vval = reinterpret_cast<const float4*>(v_pages + off)[c];
+    if constexpr (kQuant) {
+      // values into registers and scales into shared memory, all issued
+      // before the barrier (the previous tile's load loop ended at the
+      // barrier below it, so the scale slots are free again)
+      constexpr int kPer = kKeys * kMaxD4 / kThreads;  // groups / thread
+      uint32_t gk[kPer], gv[kPer];
+#pragma unroll
+      for (int n = 0; n < kPer; ++n) {
+        const int i = tid + n * kThreads;
+        const int j = i / D4, c = i % D4;
+        gk[n] = gv[n] = 0u;
+        if (i < kKeys * D4 && j < nk) {  // only keys below kv_end
+          const int kv = kb + j;
+          const size_t off = (((size_t)table[kv / page_size] * page_size +
+                               kv % page_size) * Hkv + hk) * D;
+          gk[n] = reinterpret_cast<const uint32_t*>(k_pages + off)[c];
+          gv[n] = reinterpret_cast<const uint32_t*>(v_pages + off)[c];
+        }
       }
-      sK[j * stride4 + c] = kval;
-      sV[j * stride4 + c] = vval;
+      if (tid < nk) {
+        const int kv = kb + tid;
+        const size_t row =
+            ((size_t)stable[kv / page_size] * page_size + kv % page_size) *
+                Hkv + hk;
+        sKs[tid] = k_scales[row];
+        sVs[tid] = v_scales[row];
+      }
+      __syncthreads();  // the previous tile is consumed, the scales are in
+#pragma unroll
+      for (int n = 0; n < kPer; ++n) {
+        const int i = tid + n * kThreads;
+        const int j = i / D4, c = i % D4;
+        if (i < kKeys * D4) {
+          float4 kval = make_float4(0.f, 0.f, 0.f, 0.f), vval = kval;
+          if (j < nk) {
+            kval = widen4(gk[n], sKs[j], T{});
+            vval = widen4(gv[n], sVs[j], T{});
+          }
+          sK[j * stride4 + c] = kval;
+          sV[j * stride4 + c] = vval;
+        }
+      }
+    } else {
+      __syncthreads();  // the previous tile is consumed (and sQ is written)
+      for (int i = tid; i < kKeys * D4; i += kThreads) {
+        const int j = i / D4, c = i % D4;
+        float4 kval = make_float4(0.f, 0.f, 0.f, 0.f), vval = kval;
+        if (j < nk) {  // only keys below kv_end are ever loaded
+          const int kv = kb + j;
+          const int pg = table[kv / page_size];
+          const size_t off =
+              (((size_t)pg * page_size + kv % page_size) * Hkv + hk) * D;
+          kval = reinterpret_cast<const float4*>(k_pages + off)[c];
+          vval = reinterpret_cast<const float4*>(v_pages + off)[c];
+        }
+        sK[j * stride4 + c] = kval;
+        sV[j * stride4 + c] = vval;
+      }
     }
     __syncthreads();
     if (!warp_active) continue;  // warp-uniform

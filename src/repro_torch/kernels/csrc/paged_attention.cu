@@ -50,10 +50,11 @@ batched_paged_attention_kernel(
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const size_t row0 = (size_t)b * Tq + t0;
-  attend_tile(q + row0 * H * D, out + row0 * H * D,
-              min(rows_per_tile, Tq - t0), q_starts[b] + t0, context_lens[b],
-              block_table + (size_t)b * n_pages, n_pages, k_pages, v_pages,
-              H, Hkv, D, page_size, hk, window, scale);
+  attend_tile<float>(q + row0 * H * D, out + row0 * H * D,
+                     min(rows_per_tile, Tq - t0), q_starts[b] + t0,
+                     context_lens[b], block_table + (size_t)b * n_pages,
+                     n_pages, k_pages, v_pages, nullptr, nullptr, nullptr, H,
+                     Hkv, D, page_size, hk, window, scale);
 }
 
 }  // namespace

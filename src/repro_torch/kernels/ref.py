@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from .quant import raw_pool
+
 NEG_INF = -1e30
 
 # bytes of gathered per-token K (or V) one chunk of the ragged oracle may
@@ -17,11 +19,32 @@ NEG_INF = -1e30
 _GATHER_BUDGET = 1 << 28
 
 
+def index_pages(pages: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pages[idx]`` over the leading dim, through ``raw_pool``."""
+    return raw_pool(pages)[idx.long()].view(pages.dtype)
+
+
 def paged_gather(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """pages: (P, page, Hkv, D); block_table: (B, n_pages) → (B, n_pages*page, Hkv, D)."""
-    g = pages[block_table.long()]           # (B, n_pages, page, Hkv, D)
+    g = index_pages(pages, block_table)     # (B, n_pages, page, Hkv, D)
     b, n, p, h, d = g.shape
     return g.reshape(b, n * p, h, d)
+
+
+def paged_gather_scales(scale_pages: torch.Tensor,
+                        scale_table: torch.Tensor) -> torch.Tensor:
+    """scale_pages: (P, page, Hkv); scale_table: (B, n_pages)
+    → (B, n_pages*page, Hkv). The scale-row companion of ``paged_gather``
+    (DESIGN.md §14)."""
+    g = scale_pages[scale_table.long()]     # (B, n_pages, page, Hkv)
+    b, n, p, h = g.shape
+    return g.reshape(b, n * p, h)
+
+
+def _dequant_gather(pages, scale_pages, table, scale_table) -> torch.Tensor:
+    """The gathered context of quantized pages, dequantized in f32."""
+    return (paged_gather(pages, table).float()
+            * paged_gather_scales(scale_pages, scale_table)[..., None])
 
 
 def _attend_gathered(q, k, v, context_lens, q_starts, *, window, scale):
@@ -72,6 +95,25 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, context_lens,
                             window=window, scale=scale)
 
 
+def paged_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
+                              block_table, scale_table, context_lens,
+                              q_starts, *, window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Quantized-KV oracle (DESIGN.md §14): dequantize the gathered context
+    with per-(token, kv-head) scales, then run the exact fp32 reference math.
+
+    k_pages/v_pages: (P, page, Hkv, D) int8/fp8; k_scales/v_scales:
+    (Ps, page, Hkv) f32 scale pages; scale_table: (B, n_pages) parallel to
+    block_table (``BlockAllocator.scale_table``).
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    k = _dequant_gather(k_pages, k_scales, block_table, scale_table)
+    v = _dequant_gather(v_pages, v_scales, block_table, scale_table)
+    return _attend_gathered(q, k, v, context_lens, q_starts,
+                            window=window, scale=scale)
+
+
 def paged_attention_ragged_ref(q, k_pages, v_pages, block_tables,
                                context_lens, q_starts, q_lens, pos0,
                                *, window: Optional[int] = None,
@@ -93,10 +135,35 @@ def paged_attention_ragged_ref(q, k_pages, v_pages, block_tables,
     Rows not owned by any sequence (stream padding) return zeros. The rows
     are processed in chunks that bound the per-token gathered context.
     """
-    t, _, d = q.shape
-    scale = scale if scale is not None else d ** -0.5
     k = paged_gather(k_pages, block_tables)                # (S, L, Hkv, D)
     v = paged_gather(v_pages, block_tables)
+    return _attend_ragged_chunked(q, k, v, context_lens, q_starts, q_lens,
+                                  pos0, window=window, scale=scale)
+
+
+def paged_attention_ragged_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                     block_tables, scale_tables, context_lens,
+                                     q_starts, q_lens, pos0,
+                                     *, window: Optional[int] = None,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Quantized token-packed ragged oracle (DESIGN.md §14): dequantize each
+    sequence's gathered context with its scale pages, then run the exact
+    fp32 ragged reference math. scale_tables: (S, n_pages) parallel to
+    block_tables. The plain version of kernel B2."""
+    k = _dequant_gather(k_pages, k_scales, block_tables, scale_tables)
+    v = _dequant_gather(v_pages, v_scales, block_tables, scale_tables)
+    return _attend_ragged_chunked(q, k, v, context_lens, q_starts, q_lens,
+                                  pos0, window=window, scale=scale)
+
+
+def _attend_ragged_chunked(q, k, v, context_lens, q_starts, q_lens, pos0,
+                           *, window, scale):
+    """``_attend_ragged_gathered`` over chunks of stream rows that bound
+    the per-token gathered context; rows are independent, so chunking
+    never changes a value."""
+    t, _, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
     row_bytes = max(k[0].numel() * k.element_size(), 1)
     chunk = max(1, _GATHER_BUDGET // row_bytes)
     outs = [_attend_ragged_gathered(q[r0:r0 + chunk], k, v, context_lens,

@@ -13,8 +13,11 @@ against a one-pass softmax), over the shapes the serving paths give it:
 D = 16 (reduced configs) and 80 (full width), GQA groups 1-8, pages of 16
 and 128, with and without a window; pad sequences and stream padding for
 the ragged kernel, Tq of 1 (decode), γ+1 (verify) and chunks for the
-batched one. The executor's sequential, multi-step and speculative paths
-give the CPU's tokens, and their horizons never wait for the device.
+batched one. The quantized ragged kernel (B2) is held the same way for
+int8 and fp8-e4m3 pools: both it and its plain version read the same
+dequantized values, so only the fp32 summation order differs. The
+executor's sequential, multi-step and speculative paths give the CPU's
+tokens, fp32 and int8, and their horizons never wait for the device.
 """
 import dataclasses
 
@@ -27,13 +30,20 @@ from repro_torch.core import LinearCostModel, make_scheduler
 from repro_torch.engine import (Engine, EngineConfig,
                                 PagedTransformerExecutor, Request)
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_ragged)
-from repro_torch.kernels.ref import (paged_attention_ragged_ref,
+from repro_torch.kernels.paged_attention import (
+    paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
+from repro_torch.kernels.quant import kv_quant_spec, quantize_kv
+from repro_torch.kernels.ref import (paged_attention_ragged_quant_ref,
+                                     paged_attention_ragged_ref,
                                      paged_attention_ref)
 from repro_torch.models import init_params
 
 ATOL = 1e-4
+# card vs CPU logits under quantized KV: K/V rows that differ by fp32
+# noise between the devices may quantize an element to the neighbouring
+# step (absmax / 127 for int8), which moves the logits by ~1e-3 at the
+# reduced sizes; the tokens must still be equal
+ATOL_QUANT_LOGITS = 1e-2
 
 # (q_lens, pos0, H, Hkv, D, page, n_pages, window); q_len 0 = pad sequence
 LAYOUTS = [
@@ -329,3 +339,136 @@ def test_decode_paths_card_match_cpu(cuda, path):
     assert n_c == 0 and n_g > 0
     if path != "sequential":
         assert any(k[0] in ("multi", "spec") for k in keys_g)
+
+
+# -- the quantized ragged kernel (B2) ------------------------------------
+
+def _quant_inputs(fmt, layout, device, seed=0):
+    """``_inputs``' step with its pools quantized on the card and scale
+    pages at permuted ids, so a wrong scale table reads wrong scales."""
+    q, k, v, bt, ctx, qs, ql, p0 = _inputs(*layout, device, seed=seed)
+    spec = kv_quant_spec(fmt, device)
+    kq, ks = quantize_kv(k, spec)
+    vq, vs = quantize_kv(v, spec)
+    perm = torch.as_tensor(np.random.default_rng(seed + 1).permutation(
+        k.shape[0]), device=device)
+    inv = torch.argsort(perm)
+    st = perm[bt.long()].to(torch.int32)
+    return [q, kq, vq, ks[inv].contiguous(), vs[inv].contiguous(), bt, st,
+            ctx, qs, ql, p0]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[2:7]}")
+def test_quant_kernel_matches_plain_version(cuda, fmt, layout):
+    *shape, window = layout
+    args = _quant_inputs(fmt, shape, cuda)
+    before = paged_attention_ragged_quant.launches
+    got = paged_attention_ragged_quant(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_ragged_quant.launches == before + 1
+    want = paged_attention_ragged_quant_ref(*args, window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+    assert torch.all(got[sum(layout[0]):] == 0), "stream padding rows are 0"
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("layout", LAYOUTS[3:5], ids=["swa", "d80"])
+def test_quant_kernel_never_reads_outside_visible_keys(cuda, fmt, layout):
+    """NaN in every scale slot a row may not read and 0x7F bytes (NaN in
+    e4m3fn) in those value slots leave the output bit-identical."""
+    *shape, window = layout
+    q, k, v, ks, vs, bt, st, ctx, qs, ql, p0 = _quant_inputs(fmt, shape,
+                                                             cuda)
+    clean = paged_attention_ragged_quant(q, k, v, ks, vs, bt, st, ctx, qs,
+                                         ql, p0, window=window)
+    page, n_pages = k.shape[1], bt.shape[1]
+    kb, vb = k.view(torch.uint8).clone(), v.view(torch.uint8).clone()
+    ks2, vs2 = ks.clone(), vs.clone()
+    kv = torch.arange(n_pages * page, device=cuda)
+    for s in range(bt.shape[0]):
+        lo = 0 if window is None else max(0, int(p0[s]) - window + 1)
+        bad = (kv < lo) | (kv >= int(ctx[s]))
+        pg = bt[s].long()[kv[bad] // page]
+        spg = st[s].long()[kv[bad] // page]
+        kb[pg, kv[bad] % page] = 0x7F
+        vb[pg, kv[bad] % page] = 0x7F
+        ks2[spg, kv[bad] % page] = float("nan")
+        vs2[spg, kv[bad] % page] = float("nan")
+    dirty = paged_attention_ragged_quant(
+        q, kb.view(k.dtype), vb.view(v.dtype), ks2, vs2, bt, st, ctx, qs, ql,
+        p0, window=window)
+    assert torch.equal(clean, dirty)
+
+
+def test_quant_kernel_rejects_what_it_does_not_take(cuda):
+    args = _quant_inputs("int8", LAYOUTS[0][:-1], cuda)
+    q, k, v, ks, vs, bt, st, *meta = args
+    before = paged_attention_ragged_quant.launches
+    with pytest.raises(TypeError):              # fp32 pools
+        paged_attention_ragged_quant(q, k.float(), v.float(), ks, vs, bt,
+                                     st, *meta)
+    with pytest.raises(TypeError):              # f64 scales
+        paged_attention_ragged_quant(q, k, v, ks.double(), vs, bt, st, *meta)
+    raw = torch.zeros(k.numel() + 1, dtype=torch.uint8, device=cuda)
+    k_off = raw[1:].view(torch.int8).view(k.shape)
+    with pytest.raises(ValueError):             # pools off 4-byte alignment
+        paged_attention_ragged_quant(q, k_off, v, ks, vs, bt, st, *meta)
+    with pytest.raises(ValueError):             # scale tables of other shape
+        paged_attention_ragged_quant(q, k, v, ks, vs, bt, st[:, :-1], *meta)
+    with pytest.raises(ValueError):             # scale tables on the host
+        paged_attention_ragged_quant(q, k, v, ks, vs, bt, st.cpu(), *meta)
+    assert paged_attention_ragged_quant.launches == before
+
+
+@pytest.mark.parametrize("path", ["fused", "batched", "sequential", "multi",
+                                  "self_draft"])
+def test_int8_executor_card_matches_cpu(cuda, path):
+    """Reduced h2o-danube-1.8b with int8 KV: every path gives the CPU's
+    tokens on the card, and B2 launches once per layer per attention
+    pass on the card, never on the CPU; B1 and B3 do not launch."""
+    cfg = get_reduced("h2o-danube-1.8b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ex = PagedTransformerExecutor(
+            cfg, params, num_pages=64, page_size=16, max_pages_per_seq=8,
+            kv_dtype="int8", mode="sequential" if path == "sequential"
+            else "fused", ragged_attention=path != "batched",
+            capture_logits=path in ("fused", "batched", "sequential"),
+            device=dev)
+        if path == "self_draft":
+            ex.set_draft(TruncatedSelfDraft(1))
+        eng = Engine(make_scheduler("fairbatching", LinearCostModel(
+            a=1e-4, b=1e-6, c=1e-10)), ex, EngineConfig(
+                5.0, 5.0, commit_horizon={"multi": 4, "self_draft": 2}.get(
+                    path, 1), speculate=2 if path == "self_draft" else 0))
+        rng = np.random.default_rng(3)
+        for i in range(5):
+            plen = int(rng.integers(1, 70))
+            eng.submit(Request(i, arrival=0.0, prompt_len=plen,
+                               max_new_tokens=7, ttft_slo=5.0, tpot_slo=5.0,
+                               tokens=[int(x) for x in rng.integers(
+                                   0, cfg.vocab, plen)]))
+        counts0 = (paged_attention_ragged_quant.launches,
+                   paged_attention_ragged.launches, paged_attention.launches)
+        first = {}
+        while eng.has_work:
+            eng.step()
+            for rid, lg in ex.last_logits.items():
+                first.setdefault(rid, lg)
+        counts = (paged_attention_ragged_quant.launches - counts0[0],
+                  paged_attention_ragged.launches - counts0[1],
+                  paged_attention.launches - counts0[2])
+        runs[dev] = ({r: q.generated_tokens for r, q in eng.requests.items()},
+                     first, counts, ex)
+    (tok_g, lg_g, n_g, ex_g), (tok_c, lg_c, n_c, _) = runs["cuda"], runs["cpu"]
+    assert tok_g == tok_c
+    for rid in lg_c:
+        np.testing.assert_allclose(lg_g[rid], lg_c[rid],
+                                   atol=ATOL_QUANT_LOGITS, rtol=0)
+    assert n_c == (0, 0, 0)
+    assert n_g[0] > 0 and n_g[1:] == (0, 0)
+    if path in ("fused", "batched"):
+        assert n_g[0] == cfg.n_layers * ex_g.n_dispatches

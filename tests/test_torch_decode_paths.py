@@ -28,9 +28,10 @@ import repro.engine as jeng
 import repro_torch.core as tcore
 import repro_torch.engine as teng
 from repro.configs import get_reduced
-from repro.engine.numerics import ModelTimedExecutor, capture_schedule
+from repro.engine import numerics as jnum
 from repro.models import ModelOpts, build_model
 from repro_torch.configs import get_reduced as torch_get_reduced
+from repro_torch.engine import numerics as tnum
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.models import params_from_numpy
 
@@ -92,7 +93,7 @@ def _drive(core, eng_pkg, execu, reqs, max_steps=400, **ecfg):
     eng = eng_pkg.Engine(sched, execu,
                          eng_pkg.EngineConfig(ttft_slo=5.0, tpot_slo=5.0,
                                               **ecfg))
-    trace = capture_schedule(eng)
+    trace = (tnum if eng_pkg is teng else jnum).capture_schedule(eng)
     for r in reqs:
         eng.submit(r)
     first, n = {}, 0
@@ -136,9 +137,9 @@ def test_sequential_trace_byte_equal_under_model_clock(setups, arch):
     jx, tx = _executors(setups[arch], mode="sequential")
     vocab = setups[arch][0].vocab
     reqs = dict(n=7, max_prompt=60, n_new=6)
-    ej, tok_j, _, tr_j = _drive(jcore, jeng, ModelTimedExecutor(jx),
+    ej, tok_j, _, tr_j = _drive(jcore, jeng, jnum.ModelTimedExecutor(jx),
                                 _mixed_requests(jeng, vocab, 4, **reqs))
-    et, tok_t, _, tr_t = _drive(tcore, teng, ModelTimedExecutor(tx),
+    et, tok_t, _, tr_t = _drive(tcore, teng, tnum.ModelTimedExecutor(tx),
                                 _mixed_requests(teng, vocab, 4, **reqs))
     assert len(tr_j.plans) > 5
     assert tr_t.fingerprint() == tr_j.fingerprint()

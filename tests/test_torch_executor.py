@@ -6,8 +6,9 @@ Both executors run the ragged paged-attention contract: the JAX one with
 bridge. On seeded mixed plans their greedy token streams are equal and
 first-token logits agree within 1e-4 (fp32 through two different BLAS
 libraries over a 2-layer model); under the deterministic model clock
-(``ModelTimedExecutor``) the scheduler traces are byte-equal; each engine
-step is one dispatch; and pool exhaustion defers instead of corrupting.
+(each package's ``ModelTimedExecutor``) the scheduler traces are
+byte-equal; each engine step is one dispatch; and pool exhaustion defers
+instead of corrupting.
 """
 import dataclasses
 
@@ -15,15 +16,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core as jcore
 import repro.engine as jeng
 import repro_torch.core as tcore
 import repro_torch.engine as teng
 from repro.configs import get_reduced
-from repro.engine.numerics import ModelTimedExecutor, capture_schedule
+from repro.engine import numerics as jnum
 from repro.models import ModelOpts, build_model
 from repro_torch.configs import get_reduced as torch_get_reduced
+from repro_torch.engine import numerics as tnum
 from repro_torch.engine.spec_decode import TruncatedSelfDraft
 from repro_torch.models import params_from_numpy
 
@@ -101,7 +104,8 @@ def _drive(core, eng_pkg, execu, reqs, max_steps=400):
                                 core.LinearCostModel(a=1e-4, b=1e-6, c=1e-10))
     eng = eng_pkg.Engine(sched, execu,
                          eng_pkg.EngineConfig(ttft_slo=5.0, tpot_slo=5.0))
-    trace = capture_schedule(eng)
+    # each package's own harness (the port's engine/numerics.py is a copy)
+    trace = (tnum if eng_pkg is teng else jnum).capture_schedule(eng)
     for r in reqs:
         eng.submit(r)
     first, deferred_seen, n = {}, False, 0
@@ -145,9 +149,9 @@ def test_scheduler_trace_byte_equal_under_model_clock(setups, jax_executors,
     tx = _executors(setups[arch])[1]
     vocab = setups[arch][0].vocab
     reqs = dict(n=7, max_prompt=60, n_new=6)
-    ej, tok_j, _, tr_j, _ = _drive(jcore, jeng, ModelTimedExecutor(jx),
+    ej, tok_j, _, tr_j, _ = _drive(jcore, jeng, jnum.ModelTimedExecutor(jx),
                                    _mixed_requests(jeng, vocab, 4, **reqs))
-    et, tok_t, _, tr_t, _ = _drive(tcore, teng, ModelTimedExecutor(tx),
+    et, tok_t, _, tr_t, _ = _drive(tcore, teng, tnum.ModelTimedExecutor(tx),
                                    _mixed_requests(teng, vocab, 4, **reqs))
     assert len(tr_j.plans) > 5
     assert tr_t.fingerprint() == tr_j.fingerprint()
@@ -189,15 +193,24 @@ def test_decode_defers_when_out_of_blocks(setups):
 
 
 def test_unported_options_raise(setups):
-    """Quantized KV, mesh sharding and the prefix cache are later slices and
-    raise; sequential mode, multi-step decode and the draft hook work."""
+    """Mesh sharding and the prefix cache are later slices and raise;
+    sequential mode, multi-step decode, the draft hook and quantized KV
+    work, and an unknown kv_dtype raises."""
     cfg, tcfg, _, tparams = setups["stablelm-3b"]
-    for kw in ({"kv_dtype": "int8"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            teng.PagedTransformerExecutor(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
+                                      mesh=object())
     with pytest.raises(ValueError):
         teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
                                       mode="pipelined")
+    with pytest.raises(ValueError):
+        teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
+                                      kv_dtype="int4")
+    q8 = teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
+                                       num_pages=8, page_size=4,
+                                       kv_dtype="int8")
+    assert q8.k_pages.dtype == torch.int8
+    assert q8.k_scales.shape == q8.k_pages.shape[:-1]
     ex = teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
                                        num_pages=8, page_size=4)
     with pytest.raises(NotImplementedError):

@@ -172,23 +172,24 @@ def test_build_names_libraries_by_source_digest(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("name", sorted(_build.SOURCES))
 def test_ctypes_signature_matches_the_c_launcher(name):
-    """The wrapper's argtypes follow the extern "C" launcher's parameter
+    """The wrapper's argtypes follow each extern "C" launcher's parameter
     list, type for type: ctypes would otherwise pass a cut pointer or
     refuse the call only on the card."""
     import ctypes
     import re
     src = (_build.CSRC / _build.SOURCES[name]).read_text()
-    params = re.search(rf'extern "C" int {name}_f32\((.*?)\)', src,
-                       re.S).group(1)
+    found = re.findall(rf'extern "C" int ({name}_\w+)\((.*?)\)', src, re.S)
+    assert found, f"no launcher of {name}"
     kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
-    want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
-            for p in params.split(",")]
-    assert tpa._SIG[name] == want
+    for symbol, params in found:
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+                for p in params.split(",")]
+        assert tpa._SIG[symbol] == want, symbol
 
 
 def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
-    """Both kernels include csrc/attention_tile.cuh: editing it renames
-    both libraries, so neither loads a stale build."""
+    """Every kernel includes csrc/attention_tile.cuh: editing it renames
+    every library, so none loads a stale build."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in _build.CSRC.iterdir():
@@ -198,7 +199,8 @@ def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
     hdr = csrc / "attention_tile.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
-    assert set(before) == {"paged_attention", "paged_attention_ragged"}
+    assert set(before) == {"paged_attention", "paged_attention_ragged",
+                           "paged_attention_ragged_quant"}
     assert all(before[n] != after[n] for n in before)
 
 

@@ -2,13 +2,16 @@
 """Where the port's serving time goes on the card.
 
     python3 tools/profile_torch_serve.py [--workload serve16|decode16]
-        [--horizon H] [--out build/profile/serve_trace.json]
+        [--horizon H] [--kv-dtype fp32|int8|fp8_e4m3]
+        [--out build/profile/serve_trace.json]
 
 Serves one of ``chip_smoke.py``'s full-width h2o-danube-1.8b workloads —
 ``serve16`` (phase 5: 16 seeded requests, prompts of 256-3072 tokens, 32
 new tokens, arrivals 50 ms apart) or ``decode16`` (phase 5b: the same
 prompts all at time 0, 64 new tokens) — with ``commit_horizon=H``
-(default 1, the fused single-step path) three times on one CUDA card:
+(default 1, the fused single-step path) and the KV pools stored as
+``--kv-dtype`` (default fp32; int8 and fp8_e4m3 quantize on scatter and
+attend through kernel B2) three times on one CUDA card:
 once to warm up (kernel build, cuBLAS set-up), once untraced, once under
 ``torch.profiler``. With H > 1 a fourth run repeats the untraced one with
 chip_smoke's sync check on (each horizon under torch's sync debug mode),
@@ -19,9 +22,9 @@ to show what that check costs. Prints, as JSON lines:
   (a committed horizon's steps count dt / H each; the traced-untraced
   difference is the tracing overhead);
 * ``device_time`` — device milliseconds by kernel class (matmul,
-  attention (both paged-attention kernels), KV scatter, other
-  elementwise/index kernels, copies) from the trace, and each class's
-  share;
+  attention (every paged-attention kernel), KV scatter, other
+  elementwise/index kernels — quantization among them — copies) from
+  the trace, and each class's share;
 * ``device_busy`` — the union of device activity over the traced serving
   wall time, and its complement, the idle share;
 * ``per_step`` — for steps that carry prefill, decode-only steps and
@@ -74,12 +77,14 @@ WORKLOADS = {"serve16": dict(new_tokens=32, gap=0.05),
              "decode16": dict(new_tokens=64, gap=0.0)}
 
 
-def run(cfg, params, workload: str, horizon: int, check_sync: bool = False):
+def run(cfg, params, workload: str, horizon: int, kv_dtype: str,
+        check_sync: bool = False):
     w = WORKLOADS[workload]
     reqs = cs.make_requests(cfg, 16, (256, 3072), w["new_tokens"], w["gap"],
                             seed=3, slo=(10.0, 0.25))
     served = cs.serve(cfg, params, "cuda", reqs, **cs.SERVE_PAGES,
-                      horizon=horizon, check_sync=check_sync)
+                      horizon=horizon, check_sync=check_sync,
+                      kv_dtype=kv_dtype)
     eng, wall = served.eng, served.wall
     pre = [s.t_end - s.t_start for s in eng.steps if s.n_prefill]
     dec = [s.t_end - s.t_start for s in eng.steps if not s.n_prefill]
@@ -108,6 +113,8 @@ def main() -> int:
     ap.add_argument("--workload", choices=sorted(WORKLOADS),
                     default="serve16")
     ap.add_argument("--horizon", type=int, default=1)
+    ap.add_argument("--kv-dtype", choices=("fp32", "int8", "fp8_e4m3"),
+                    default="fp32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: no CUDA device")
@@ -118,14 +125,14 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     print("workload", json.dumps({"workload": args.workload,
-                                  "horizon": args.horizon}), flush=True)
-    run(cfg, params, args.workload, args.horizon)            # warm-up
-    print("untraced", json.dumps(run(cfg, params, args.workload,
-                                     args.horizon)), flush=True)
+                                  "horizon": args.horizon,
+                                  "kv_dtype": args.kv_dtype}), flush=True)
+    wl = (args.workload, args.horizon, args.kv_dtype)
+    run(cfg, params, *wl)                                    # warm-up
+    print("untraced", json.dumps(run(cfg, params, *wl)), flush=True)
     if args.horizon > 1:
         print("untraced_sync_checked", json.dumps(run(
-            cfg, params, args.workload, args.horizon, check_sync=True)),
-            flush=True)
+            cfg, params, *wl, check_sync=True)), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -147,7 +154,7 @@ def main() -> int:
     PagedTransformerExecutor.execute_multi = spanned_multi
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            traced = run(cfg, params, args.workload, args.horizon)
+            traced = run(cfg, params, *wl)
     finally:
         PagedTransformerExecutor.execute = execute
         PagedTransformerExecutor.execute_multi = execute_multi
