@@ -7,7 +7,7 @@ Needs one CUDA card and the CUDA toolkit (nvcc); imports nothing of JAX and
 nothing of the JAX package. Phases, each printing its own lines:
 
 1. device — the card's name and power limit as nvidia-smi gives them.
-2. build  — nvcc builds every kernel of the serving path from
+2. build  — nvcc builds every kernel of the serving paths from
    ``src/repro_torch/kernels/csrc`` (seconds and ptxas' resource report).
 3. kernel vs plain — ``paged_attention_ragged`` against its plain PyTorch
    version at the serving step's shapes (h2o-danube-1.8b attention: H=32,
@@ -44,6 +44,19 @@ nothing of the JAX package. Phases, each printing its own lines:
    bound counts 1 byte per K/V element plus 4 per row scale (q, output
    and tables f32 / int32); the library yardstick is phase 3's SDPA over
    the dequantized view, dequantized before timing.
+3d. expert GEMM vs plain — ``moe_gmm`` (B4) against ``moe_gmm_ref`` and
+   ``torch.bmm`` (fp32, TF32 off) at the capacity path's shapes, x and w
+   ~ N(0, 0.3²): mixtral-8x7b (E=8, d=4096, f=14336) gate/up (K=4096,
+   N=14336) and down (K=14336, N=4096) at the capacity of (h) a 64-token
+   decode step (C=20), (i) a 512-token chunk (C=160) and (j) a 2048-token
+   chunk (C=640); (k) kimi-k2's gate (E=384, C=4, K=7168, N=2048; w holds
+   5.6e9 elements, 22.5 GB, freed before phase 4). Gate: max abs error
+   < 2e-4·√K (tests/test_kernels.py) and a second launch bitwise equal;
+   the error relative to max|plain| is reported. Timing as in phase 3;
+   bound = max(bytes of x, w and the output / 3.35 TB/s, 2·E·C·K·N / 67
+   TFLOP/s). After phase 5d the same check runs at every capacity that
+   phase's serving run launched B4 at (its decode and prefill buckets):
+   the shapes of the main path.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -64,6 +77,15 @@ nothing of the JAX package. Phases, each printing its own lines:
    tokens of the same dtype (DESIGN.md §11/§12/§18 under §14), horizons
    under the sync check; B2 launches once per layer per attention pass,
    B1 and B3 never.
+4d. MoE parity — mixtral-8x7b at full width, 2 layers, the port's own
+   weights, phase 4's requests, the engine on the cost model's clock
+   (``ModelTimedExecutor``), so that card and CPU make the same plans and
+   so the same capacity drops: under both ``moe_impl="exact"`` and
+   ``"capacity"`` card fused tokens = CPU fused tokens and first-token
+   logits within 1e-3; on the card exact fused tokens = ``mode=
+   "sequential"`` and ``commit_horizon=4`` tokens. B4 launches three times
+   per layer and router chunk of every capacity forward pass and never
+   under exact.
 5. serve — the full 24-layer h2o-danube-1.8b (fp32 weights from a seed)
    serves 16 requests through ``Engine`` + the ``fairbatching`` scheduler +
    the fused ``PagedTransformerExecutor``; every request must finish with
@@ -86,10 +108,19 @@ nothing of the JAX package. Phases, each printing its own lines:
    [0, vocab); B2 launched n_layers per fused dispatch and n_layers ×
    horizon per multi-step dispatch, B1 and B3 never. Reports the pools'
    bytes and the share of tokens equal to the fp32 run (not gated).
+5d. MoE serving — phase 5's serve-16 requests on mixtral-8x7b at every
+   published width with 8 of its 32 layers (47.5 GB of fp32 weights,
+   seed 0), ``moe_impl="capacity"``, fused, fp32 KV, 512 pages of 128.
+   Every request finishes with 32 tokens in [0, vocab); B4 launched what
+   the forward passes imply, B1 n_layers per dispatch. Reports the
+   serving numbers (host step medians; device time by kernel class is
+   ``tools/profile_torch_serve.py --arch mixtral-8x7b --layers 8``'s) and
+   B4's launches by capacity, at which phase 3d's check then runs.
 
-Lines before the last: one ``{"kernels": [...]}`` JSON object (launches
-summed over every serving phase on the card: 4, 4b, 4c, 5, 5b, 5c), and
-the card's name and power limit.
+Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
+B2, B4; launches summed over every serving phase on the card: 4, 4b, 4c,
+4d, 5, 5b, 5c, 5d; B4's times at the gate/up shape of the capacity 5d
+launched it at most), and the card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -116,17 +147,21 @@ from repro_torch.core import LinearCostModel, make_scheduler  # noqa: E402
 from repro_torch.engine import (Engine, EngineConfig,  # noqa: E402
                                 PagedTransformerExecutor, Request)
 from repro_torch.engine.metrics import summarize  # noqa: E402
+from repro_torch.engine.numerics import ModelTimedExecutor  # noqa: E402
 from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
     dequantize_kv, kv_quant_spec, quantize_kv)
 from repro_torch.kernels.ref import (  # noqa: E402
-    paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
+    moe_gmm_ref, paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
     paged_attention_ref)
-from repro_torch.models.weights import init_params  # noqa: E402
+from repro_torch.models.moe import (  # noqa: E402
+    _capacity, chunk_capacity, router_chunks)
+from repro_torch.models.weights import init_params, params_to  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -652,6 +687,95 @@ def phase_quant_kernels(device, timer) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the expert GEMM (B4) against its plain version
+# ---------------------------------------------------------------------------
+
+def moe_steps() -> list:
+    """(name, E, C, K, N) of phase 3d: mixtral-8x7b's gate/up (K=d, N=f)
+    and down (K=f, N=d) GEMMs at the capacity of a 64-token decode step,
+    a 512-token and a 2048-token chunk, then kimi-k2's gate GEMM at a
+    64-token decode step."""
+    mix, kimi = get("mixtral-8x7b"), get("kimi-k2-1t-a32b")
+    steps = []
+    for tag, t in (("h_decode64", 64), ("i_chunk512", 512),
+                   ("j_chunk2048", 2048)):
+        e, c = mix.moe.n_experts, _capacity(t, mix.moe)
+        d, f = mix.d_model, mix.moe.d_ff_expert
+        steps += [(f"{tag}_gate_up", e, c, d, f), (f"{tag}_down", e, c, f, d)]
+    steps.append(("k_kimi_decode64_gate", kimi.moe.n_experts,
+                  _capacity(64, kimi.moe), kimi.d_model,
+                  kimi.moe.d_ff_expert))
+    return steps
+
+
+def gmm_bound(e: int, c: int, k: int, n: int) -> dict:
+    """x and w read once, the output written once, fp32; 2·E·C·K·N FLOPs
+    at the fp32 rate of the CUDA cores."""
+    nbytes = 4 * (e * c * k + e * k * n + e * c * n)
+    flops = 2 * e * c * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_moe_kernel(name, e, c, k, n, w, timer, device, seed=0) -> dict:
+    """B4 vs its plain version and ``torch.bmm`` on x ~ N(0, 0.3²) against
+    ``w``; gate: max abs error < 2e-4·√K (tests/test_kernels.py)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((e, c, k), generator=g, device=device).mul_(0.3)
+    kern = lambda: moe_gmm(x, w)
+    plain = lambda: moe_gmm_ref(x, w)
+    library = lambda: torch.bmm(x, w)
+    got, want = kern(), plain()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - want).abs().max())
+    tol = 2e-4 * k ** 0.5
+    # both against fp64 on the first expert's first rows: the plain
+    # version (cuBLAS) may run the same fp32 FMA chain as B4
+    rows = min(c, 8)
+    exact = x[0, :rows].double() @ w[0].double()
+    rec = {"step": name, "E": e, "C": c, "K": k, "N": n,
+           "max_abs_err": err, "tolerance": tol,
+           "rel_err": err / float(want.abs().max()),
+           "fp64_max_abs_err": float((got[0, :rows] - exact).abs().max()),
+           "plain_fp64_max_abs_err": float(
+               (want[0, :rows] - exact).abs().max()),
+           "library_max_abs_err": float((library() - want).abs().max()),
+           "repeat_bitwise": torch.equal(kern(), got), **gmm_bound(e, c, k, n)}
+    del got, want, exact
+    if (err >= tol or rec["fp64_max_abs_err"] >= tol
+            or not rec["repeat_bitwise"]):
+        _emit("moe_kernel_step", rec)
+        raise AssertionError(f"{name}: B4 disagrees with its plain version")
+    rec.update(time_in_turns(timer, kern, plain, library))
+    return rec
+
+
+def phase_moe_kernels(device, timer, steps=None) -> list:
+    """Phase 3d. The weights are N(0, 0.3²) like x; one w per (E, K, N),
+    freed before the next shape (kimi's holds 22.5 GB)."""
+    recs, w, w_shape = [], None, None
+    cuda = torch.device(device).type == "cuda"
+    for i, (name, e, c, k, n) in enumerate(steps or moe_steps()):
+        if (e, k, n) != w_shape:
+            del w
+            if cuda:
+                torch.cuda.empty_cache()
+            g = torch.Generator(device=device).manual_seed(100 + i)
+            w = torch.randn((e, k, n), generator=g, device=device).mul_(0.3)
+            w_shape = (e, k, n)
+        recs.append(check_moe_kernel(name, e, c, k, n, w, timer, device, i))
+        _emit("moe_kernel_step", recs[-1])
+    del w
+    if cuda:
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving through the engine
 # ---------------------------------------------------------------------------
 
@@ -670,7 +794,8 @@ def make_requests(cfg, n: int, prompt_range, new_tokens: int, gap: float,
 
 KERNELS = {"paged_attention_ragged": paged_attention_ragged,
            "paged_attention": paged_attention,
-           "paged_attention_ragged_quant": paged_attention_ragged_quant}
+           "paged_attention_ragged_quant": paged_attention_ragged_quant,
+           "moe_gmm": moe_gmm}
 # launches of each kernel summed over every serving run on the card
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -678,14 +803,16 @@ SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 @dataclasses.dataclass
 class Served:
     """One serving run: its engine and executor, first-token logits by
-    request, wall seconds, each kernel's launches in the run, and the
-    (horizon, γ) of every multi-step (γ = 0) or speculative dispatch."""
+    request, wall seconds, each kernel's launches in the run, the
+    (horizon, γ) of every multi-step (γ = 0) or speculative dispatch, and
+    the (token rows, layers) of every forward pass."""
     eng: Engine
     ex: PagedTransformerExecutor
     first: dict
     wall: float
     launches: dict
     multi: list
+    forwards: list
 
     @property
     def tokens(self) -> dict:
@@ -705,21 +832,46 @@ def _no_sync(fn):
     return run
 
 
+def _record_forwards(ex, forwards: list) -> None:
+    """Append (token rows, layers run) for every forward pass of ``ex``:
+    the fused step's bucket, and each batched pass's B·T rows (sequential
+    chunks and decodes, every step of a committed horizon)."""
+    fused_step, forward = ex._fused_step, ex._forward
+
+    def fused(st, t_bucket):
+        forwards.append((t_bucket, ex.cfg.n_layers))
+        return fused_step(st, t_bucket)
+
+    def batched(x, *args, n_layers=None, **kw):
+        forwards.append((x.shape[0] * x.shape[1],
+                         ex.cfg.n_layers if n_layers is None else n_layers))
+        return forward(x, *args, n_layers=n_layers, **kw)
+
+    ex._fused_step, ex._forward = fused, batched
+
+
 def serve(cfg, params, device, requests, *, page_size, num_pages,
           max_pages_per_seq, capture_logits=False, max_steps=20_000,
           mode="fused", horizon=1, gamma=0, draft=None,
-          check_sync=True, kv_dtype="fp32", ragged=True) -> Served:
+          check_sync=True, kv_dtype="fp32", ragged=True,
+          moe_impl="exact", clock=None) -> Served:
     """Serve ``requests`` to completion. On the card, with ``check_sync``,
     every committed horizon and speculative round body runs under torch's
-    sync debug mode set to raise: it may not wait for the device."""
+    sync debug mode set to raise: it may not wait for the device. With a
+    ``clock`` (a ``LinearCostModel``) the engine runs on that model's step
+    times instead of the wall clock, so that the plans do not depend on
+    the device."""
     ex = PagedTransformerExecutor(cfg, params, num_pages=num_pages,
                                   page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
                                   mode=mode, capture_logits=capture_logits,
                                   kv_dtype=kv_dtype,
-                                  ragged_attention=ragged, device=device)
+                                  ragged_attention=ragged,
+                                  moe_impl=moe_impl, device=device)
     if draft is not None:
         ex.set_draft(draft)
+    forwards: list = []
+    _record_forwards(ex, forwards)
     cuda = torch.device(device).type == "cuda"
     if cuda and check_sync:
         ex._multi_decode_step = _no_sync(ex._multi_decode_step)
@@ -735,12 +887,17 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
 
     ex.execute_multi = recorded
     slo_ttft, slo_tpot = requests[0].ttft_slo, requests[0].tpot_slo
-    sched = make_scheduler("fairbatching",
-                           LinearCostModel(a=5e-3, b=7e-5, c=4e-8))
-    eng = Engine(sched, ex, EngineConfig(ttft_slo=slo_ttft,
-                                         tpot_slo=slo_tpot,
-                                         commit_horizon=horizon,
-                                         speculate=gamma))
+    if clock is None:
+        sched = make_scheduler("fairbatching",
+                               LinearCostModel(a=5e-3, b=7e-5, c=4e-8))
+        timed = ex
+    else:
+        sched = make_scheduler("fairbatching", clock, calibrate=False)
+        timed = ModelTimedExecutor(ex, clock)
+    eng = Engine(sched, timed, EngineConfig(ttft_slo=slo_ttft,
+                                            tpot_slo=slo_tpot,
+                                            commit_horizon=horizon,
+                                            speculate=gamma))
     for r in requests:
         eng.submit(r)
     first, n = {}, 0
@@ -759,7 +916,7 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
     if cuda:
         for name, c in launches.items():
             SERVING_LAUNCHES[name] += c
-    return Served(eng, ex, first, wall, launches, multi)
+    return Served(eng, ex, first, wall, launches, multi, forwards)
 
 
 PARITY_PAGES = dict(page_size=16, num_pages=64, max_pages_per_seq=8)
@@ -1082,6 +1239,142 @@ def phase_quant_serve(cfg, device, params, serve16_tokens: dict,
 
 
 # ---------------------------------------------------------------------------
+# phases 4d, 5d: MoE serving (mixtral-8x7b at full width)
+# ---------------------------------------------------------------------------
+
+# the card test's cost model: both devices see the same plans
+MODEL_CLOCK = LinearCostModel(a=1e-3, b=1e-4, c=0.0)
+
+
+def phase_moe_parity(cfg, device) -> list:
+    """Phase 4d: the port's own weights (seed 1) and phase 4's requests on
+    a MoE model, the engine on ``MODEL_CLOCK``. Under ``exact`` and
+    ``capacity``: card fused tokens = CPU fused tokens, first-token logits
+    within 1e-3. On the card, exact fused tokens = sequential and
+    ``commit_horizon=4`` tokens. B4 launches = what the forward passes
+    imply: three per layer and router chunk under capacity, none under
+    exact."""
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    on_cpu = params_to(params, "cpu")
+    reqs = lambda: make_requests(cfg, 6, (8, 64), 8, 0.01, seed=2)
+    runs = {}
+    for impl in ("exact", "capacity"):
+        for dev, p in ((device, params), ("cpu", on_cpu)):
+            runs[impl, dev] = serve(cfg, p, dev, reqs(), capture_logits=True,
+                                    moe_impl=impl, clock=MODEL_CLOCK,
+                                    **PARITY_PAGES)
+    for name, kw in (("sequential", dict(mode="sequential")),
+                     ("multi_h4", dict(horizon=4))):
+        runs["exact", name] = serve(cfg, params, device, reqs(),
+                                    clock=MODEL_CLOCK, **PARITY_PAGES, **kw)
+    recs, ok = [], True
+    for impl in ("exact", "capacity"):
+        d, c = runs[impl, device], runs[impl, "cpu"]
+        first_err = max(float(np.abs(d.first[r] - c.first[r]).max())
+                        for r in c.first)
+        rec = {"moe_impl": impl, "path": "fused",
+               "tokens_equal_cpu": d.tokens == c.tokens,
+               "share_tokens_equal_cpu": _share_equal(d.tokens, c.tokens),
+               "first_token_logits_max_abs_err": first_err,
+               "dispatches": d.ex.n_dispatches,
+               "cpu_dispatches": c.ex.n_dispatches,
+               "b4_launches": d.launches["moe_gmm"],
+               "expected_b4_launches": moe_launches(d, cfg)}
+        ok &= (rec["tokens_equal_cpu"] and d.first.keys() == c.first.keys()
+               and first_err <= ATOL_LOGITS
+               and rec["dispatches"] == rec["cpu_dispatches"]
+               and rec["b4_launches"] == rec["expected_b4_launches"])
+        if impl == "capacity":
+            ok &= rec["b4_launches"] > 0
+        _emit("moe_parity", rec)
+        recs.append(rec)
+    fused = runs["exact", device]
+    for name in ("sequential", "multi_h4"):
+        run = runs["exact", name]
+        rec = {"moe_impl": "exact", "path": name,
+               "tokens_equal_fused": run.tokens == fused.tokens,
+               "dispatches": run.ex.n_dispatches,
+               "multi_dispatches": len(run.multi),
+               "b4_launches": run.launches["moe_gmm"]}
+        ok &= rec["tokens_equal_fused"] and rec["b4_launches"] == 0
+        if name == "multi_h4":
+            ok &= len(run.multi) >= 1
+        _emit("moe_parity", rec)
+        recs.append(rec)
+    if not ok:
+        raise AssertionError("MoE parity: card, CPU and paths disagree")
+    return recs
+
+
+MOE_SERVE_PAGES = dict(page_size=128, num_pages=512, max_pages_per_seq=32)
+MOE_SERVE_LAYERS = 8             # of mixtral-8x7b's 32: 47.5 GB of fp32
+
+
+def launches_by_capacity(run: Served, cfg) -> dict:
+    """B4 launches a run's forward passes imply, by the per-expert
+    capacity C they run at, most launched first: under ``capacity`` three
+    per layer and router chunk of each pass, under ``exact`` none."""
+    out: dict = {}
+    if run.ex.moe_impl != "capacity":
+        return out
+    for rows, layers in run.forwards:
+        c = chunk_capacity(rows, cfg.moe)
+        out[c] = out.get(c, 0) + 3 * layers * router_chunks(rows, cfg.moe)
+    return dict(sorted(out.items(), key=lambda kv: (-kv[1], kv[0])))
+
+
+def moe_launches(run: Served, cfg) -> int:
+    return sum(launches_by_capacity(run, cfg).values())
+
+
+def serve_moe_steps(by_capacity: dict, cfg) -> list:
+    """Phase 3d's (name, E, C, K, N) at every capacity a serving run
+    launched B4 at: gate/up (K=d, N=f) and down (K=f, N=d) each."""
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    steps = []
+    for c in by_capacity:
+        steps += [(f"5d_C{c}_gate_up", e, c, d, f),
+                  (f"5d_C{c}_down", e, c, f, d)]
+    return steps
+
+
+def phase_moe_serve(cfg, device, *, params=None) -> dict:
+    """Phase 5d: serve-16 on ``cfg`` (mixtral-8x7b, every published width,
+    depth cut) with ``moe_impl="capacity"``, fused, fp32 KV, pages of 128
+    and 512 of them. Every request finishes with its tokens in [0, vocab);
+    B4 launches = what the forward passes imply. Reports the serving
+    numbers and B4's launches by capacity."""
+    cuda = torch.device(device).type == "cuda"
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_params(cfg, gen, device)
+    reqs = make_requests(cfg, 16, (256, 3072), 32, 0.05, seed=3,
+                         slo=(10.0, 0.25))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    run = serve(cfg, params, device, reqs, moe_impl="capacity",
+                **MOE_SERVE_PAGES)
+    _check_outputs(run, cfg, 32)
+    by_c = launches_by_capacity(run, cfg)
+    rec = {**_serve_record(run, reqs, cfg, cuda), "moe_impl": "capacity",
+           "pool_bytes": pool_bytes(run.ex),
+           "b4_launches": run.launches["moe_gmm"],
+           "expected_b4_launches": moe_launches(run, cfg),
+           "b4_launches_by_capacity": [[c, n] for c, n in by_c.items()],
+           "attention_launches": run.launches["paged_attention_ragged"]}
+    _emit("moe_serve", rec)
+    if (rec["b4_launches"] != rec["expected_b4_launches"]
+            or rec["b4_launches"] == 0
+            or rec["attention_launches"] != cfg.n_layers
+            * run.ex.n_dispatches):
+        raise AssertionError("moe serve: launches do not match the "
+                             "dispatches")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1110,10 +1403,14 @@ def main() -> int:
     recs = phase_kernels("cuda", cuda_timer)
     brecs = phase_batched_kernels("cuda", cuda_timer)
     qrecs = phase_quant_kernels("cuda", cuda_timer)
+    mrecs = phase_moe_kernels("cuda", cuda_timer)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
     phase_quant_parity(small, "cuda")
+    _release_memory()
+    phase_moe_parity(dataclasses.replace(get("mixtral-8x7b"), n_layers=2),
+                     "cuda")
     cfg = get("h2o-danube-1.8b")
     _release_memory()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1127,10 +1424,19 @@ def main() -> int:
     _, decode16_tokens = phase_serve_paths(cfg, "cuda", params,
                                            serve16_tokens)
     phase_quant_serve(cfg, "cuda", params, serve16_tokens, decode16_tokens)
+    del params
+    _release_memory()
+    mix = dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_SERVE_LAYERS)
+    by_c = dict(phase_moe_serve(mix, "cuda")["b4_launches_by_capacity"])
+    _release_memory()
+    served_mrecs = phase_moe_kernels("cuda", cuda_timer,
+                                     serve_moe_steps(by_c, mix))
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     main_brec = brecs[0]          # step (d), pages of 128: decode batches
     main_qrec = qrecs[0]          # step (a), int8, pages of 128
+    mrecs += served_mrecs
+    main_mrec = served_mrecs[0]   # gate/up at 5d's most launched C
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -1156,7 +1462,15 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in qrecs),
         "ms": main_qrec["ms"], "plain_ms": main_qrec["plain_ms"],
         "bound_ms": main_qrec["bound_ms"], "bound_by": main_qrec["bound_by"],
-        "library_ms": main_qrec["library_ms"]}]
+        "library_ms": main_qrec["library_ms"]}, {
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:38",
+        "launches": SERVING_LAUNCHES["moe_gmm"],
+        "max_abs_err": max(r["max_abs_err"] for r in mrecs),
+        "ms": main_mrec["ms"], "plain_ms": main_mrec["plain_ms"],
+        "bound_ms": main_mrec["bound_ms"], "bound_by": main_mrec["bound_by"],
+        "library_ms": main_mrec["library_ms"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,8 @@ def _load_all() -> None:
     global _LOADED
     if _LOADED:
         return
-    from . import h2o_danube_1_8b, stablelm_3b  # noqa: F401
+    from . import (h2o_danube_1_8b, kimi_k2_1t_a32b,  # noqa: F401
+                   mixtral_8x7b, stablelm_3b)
     _LOADED = True
 
 

@@ -7,30 +7,35 @@
   A copy of the JAX package's.
 
 * ``PagedTransformerExecutor`` — real PyTorch execution of the FairBatching
-  hybrid step for dense-GQA archs over a paged KV cache (kv_manager). The
-  fused mode packs the whole BatchPlan — every prefill chunk and decode
-  token — into ONE padded token stream and runs a single forward per step
-  (DESIGN.md §11), so the wall-clock step times feeding the scheduler's
-  online calibration (paper §3.2) measure the unified batch the fairness
-  math reasons about. Its attention takes the ragged paged contract by
-  default (``ragged_attention=True``, on every device); ``False`` routes it
-  through the batched kernel on a per-sequence padded view, as the JAX
-  executor does off the TPU. ``mode="sequential"`` keeps the per-item
-  launch loop as the parity oracle; ``execute_multi`` runs committed
-  multi-step decode (DESIGN.md §12) and, with a draft installed by
-  ``set_draft``, speculative rounds (§18), each horizon as one dispatch
-  with a single device→host copy at its end. ``kv_dtype="int8"`` or
-  ``"fp8_e4m3"`` stores the pools quantized with f32 row scales in scale
-  pages (DESIGN.md §14) on every one of these paths: K/V quantize on
-  scatter, the fused step attends through the quantized ragged kernel and
-  the batched paths through the quantized batched op, which flattens into
-  that kernel on the card. Every kernel is hand-written CUDA on the card
-  and its plain PyTorch version on the CPU. The time a step returns ends
-  after the device finished it (the copy of its tokens to the host
-  synchronizes).
+  hybrid step for dense-GQA and MoE archs over a paged KV cache
+  (kv_manager). The fused mode packs the whole BatchPlan — every prefill
+  chunk and decode token — into ONE padded token stream and runs a single
+  forward per step (DESIGN.md §11), so the wall-clock step times feeding the
+  scheduler's online calibration (paper §3.2) measure the unified batch the
+  fairness math reasons about. Its attention takes the ragged paged contract
+  by default (``ragged_attention=True``, on every device); ``False`` routes
+  it through the batched kernel on a per-sequence padded view, as the JAX
+  executor does off the TPU. ``mode="sequential"`` keeps the per-item launch
+  loop as the parity oracle; ``execute_multi`` runs committed multi-step
+  decode (DESIGN.md §12) and, with a draft installed by ``set_draft``,
+  speculative rounds (§18), each horizon as one dispatch with a single
+  device→host copy at its end. ``kv_dtype="int8"`` or ``"fp8_e4m3"`` stores
+  the pools quantized with f32 row scales in scale pages (DESIGN.md §14) on
+  every one of these paths: K/V quantize on scatter, the fused step attends
+  through the quantized ragged kernel and the batched paths through the
+  quantized batched op, which flattens into that kernel on the card. The MoE
+  family's FFN is ``moe_impl="exact"`` (every token through every expert:
+  the per-token oracle, so fused and sequential tokens agree) or
+  ``"capacity"`` (the production dispatch, whose three expert GEMMs run on
+  kernel B4 and whose per-chunk capacity depends on how the step packs its
+  tokens, so fused and sequential tokens may differ by design). Every kernel
+  is hand-written CUDA on the card and its plain PyTorch version on the CPU.
+  The time a step returns ends after the device finished it (the copy of its
+  tokens to the host synchronizes).
 
 Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding,
-the MoE family and ``attach_cache`` (the prefix cache).
+the SSM and hybrid families, ``attach_cache`` (the prefix cache) and
+speculative decode on a MoE target.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from ..kernels.ops import (paged_attention_op, paged_attention_quant_op,
 from ..kernels.quant import QuantSpec, kv_quant_spec, quantize_kv, raw_pool
 from ..models.layers import attn_qkv, mlp_apply
 from ..models.module import rmsnorm
+from ..models.moe import moe_capacity, moe_dense_exact
 from ..models.weights import params_to
 from .kv_manager import BlockAllocator
 
@@ -192,11 +198,28 @@ def scatter_kv(pages, x, idx, spec: Optional[QuantSpec] = None,
     scale_pages.index_put_(sidx, xs)
 
 
+MOE_IMPLS = ("exact", "capacity")
+
+
+def layer_ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+              moe_impl: str = "exact") -> torch.Tensor:
+    """Residual FFN block: the gated MLP, or for MoE archs ``moe_impl``'s
+    FFN over the flattened tokens — every row of x, padding included, as
+    the JAX executor routes them (``_layer_ffn``)."""
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is None:
+        return x + mlp_apply(lp["mlp"], h)
+    moe_fn = moe_capacity if moe_impl == "capacity" else moe_dense_exact
+    y = moe_fn(h.reshape(-1, h.shape[-1]), lp["moe"], cfg.moe)
+    return x + y.reshape(h.shape)
+
+
 def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
                   positions, tables, ctx_lens, page_size: int, valid=None,
                   n_layers: Optional[int] = None,
-                  scales: Optional[ScalePools] = None):
-    """Dense-family forward over paged KV, one batched attention launch per
+                  scales: Optional[ScalePools] = None,
+                  moe_impl: str = "exact"):
+    """Decoder forward over paged KV, one batched attention launch per
     layer. x: (B, T, d); positions: (B, T); tables: (B, n_pages); ctx_lens:
     (B,) int32; ``layers`` the per-layer weight dicts over the pools'
     leading layer dim. ``n_layers`` truncates the stack (early-exit draft
@@ -231,22 +254,24 @@ def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
                                          tables, scales.tables, ctx_lens,
                                          q_starts, window=cfg.window)
         x = x + o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = layer_ffn(cfg, lp, x, moe_impl)
     return x
 
 
 def layer_views(params: dict, n_layers: int) -> list:
-    """Per-layer weight dicts over the stacked-layer parameter tree."""
+    """Per-layer weight dicts over the stacked-layer parameter tree (``mlp``
+    or ``moe`` FFN weights, whichever the tree holds)."""
     lay = params["layers"]
+    ffn = "moe" if "moe" in lay else "mlp"
     return [{"attn": {k: w[l] for k, w in lay["attn"].items()},
-             "mlp": {k: w[l] for k, w in lay["mlp"].items()},
+             ffn: {k: w[l] for k, w in lay[ffn].items()},
              "ln1": lay["ln1"][l], "ln2": lay["ln2"][l]}
             for l in range(n_layers)]
 
 
 class PagedTransformerExecutor:
-    """Real hybrid-step executor over a paged KV cache (dense GQA, fp32
-    weights and activations; fp32, int8 or fp8-e4m3 KV).
+    """Real hybrid-step executor over a paged KV cache (dense GQA and MoE,
+    fp32 weights and activations; fp32, int8 or fp8-e4m3 KV).
 
     ``params`` is the JAX package's parameter tree as tensors
     (``models.weights.params_from_numpy`` or ``init_params``); it is moved
@@ -262,14 +287,22 @@ class PagedTransformerExecutor:
                  kv_dtype: str = "fp32",
                  trim_page_tables: bool = True,
                  mesh=None,
+                 moe_impl: str = "exact",
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if mode not in ("fused", "sequential"):
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
             raise _later("mesh sharding", "queue A13")
-        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
-            raise _later(f"the {cfg.family} family", "queue A11")
+        if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
+            raise _later(f"the {cfg.family} family", "queue A12")
+        # MoE FFN path: "exact" (dense per-token oracle) keeps fused ==
+        # sequential tokens; "capacity" (the production dispatch, kernel
+        # B4) sizes its capacity per router chunk, so its token drops —
+        # and its tokens — depend on how the step packs (DESIGN.md §17)
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}")
+        self.moe_impl = moe_impl
         self.cfg = cfg
         self.mode = mode
         self.page_size = page_size
@@ -354,7 +387,8 @@ class PagedTransformerExecutor:
             self.qspec, self.k_scales, self.v_scales, stables)
         return paged_forward(self.cfg, self._layers, self.k_pages,
                              self.v_pages, x, positions, tables, ctx_lens,
-                             self.page_size, valid, n_layers, scales)
+                             self.page_size, valid, n_layers, scales,
+                             self.moe_impl)
 
     @torch.no_grad()
     def _chunk_step(self, st: dict, n_valid: int) -> torch.Tensor:
@@ -531,7 +565,9 @@ class PagedTransformerExecutor:
                         st["ctx"], st["pos0"], window=cfg.window)
                 o = ov.reshape(-1, *ov.shape[2:])[pack_gather]
             x = x + o.reshape(t_bucket, cfg.q_dim) @ lp["attn"]["wo"]
-            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            # under "capacity" the bucket's pad rows route too, after the
+            # real tokens: capacity is sized from t_bucket, as in JAX
+            x = layer_ffn(cfg, lp, x, self.moe_impl)
         return self._head(x[st["last_idx"].long()])        # (S, vocab)
 
     # ------------------------------------------------------------------
@@ -649,7 +685,9 @@ class PagedTransformerExecutor:
 
     def set_draft(self, draft) -> None:
         """Install a draft adapter (``spec_decode``); enables
-        ``execute_multi(speculate=γ)``."""
+        ``execute_multi(speculate=γ)``. Dense targets only."""
+        if self.cfg.moe is not None:
+            raise _later("speculative decode on a MoE target", "ROADMAP §C")
         draft.bind(self)
         self.draft = draft
 

@@ -8,13 +8,15 @@ paged_attention        — batched (B, Tq) paged attention (sequential mode,
 paged_attention_ragged_quant — the ragged kernel over int8 / fp8-e4m3 K/V
                          with f32 row scales (DESIGN.md §14); the batched
                          quantized op flattens into it
+moe_gmm                — batched expert GEMM (E, C, K) x (E, K, N), the
+                         capacity-dispatch MoE FFN's three projections
 
 Each kernel has its plain version in ref.py, a wrapper with a launch count
 beside it, and a dispatch entry in ops.py. Sources live in csrc/ and build
 with nvcc on first use (_build.py). quant.py holds the KV number formats.
 """
-from .ops import (paged_attention_op, paged_attention_quant_op,
+from .ops import (moe_gmm_op, paged_attention_op, paged_attention_quant_op,
                   paged_attention_ragged_op, paged_attention_ragged_quant_op)
 
-__all__ = ["paged_attention_op", "paged_attention_quant_op",
+__all__ = ["moe_gmm_op", "paged_attention_op", "paged_attention_quant_op",
            "paged_attention_ragged_op", "paged_attention_ragged_quant_op"]

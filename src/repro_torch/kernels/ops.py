@@ -2,8 +2,10 @@
 
 Backend policy: a kernel wrapper runs its CUDA kernel on CUDA tensors and
 its plain PyTorch version (``ref.py``) on CPU tensors; the choice follows
-where the tensors lie, never a fallback. Later slices add the remaining
-ops of ``src/repro/kernels/ops.py`` here.
+where the tensors lie, never a fallback. This module is the port's one
+dispatch table, the counterpart of ``src/repro/kernels/ops.py``: the
+executor and the models reach every kernel through an op here, even where
+the op only forwards to its wrapper. Later slices add the remaining ops.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .moe_gmm import moe_gmm
 from .paged_attention import (paged_attention, paged_attention_ragged,
                               paged_attention_ragged_quant)
 
@@ -68,3 +71,10 @@ def paged_attention_ragged_quant_op(q, k_pages, v_pages, k_scales, v_scales,
     return paged_attention_ragged_quant(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, scale_tables,
         context_lens, q_starts, q_lens, pos0, window=window)
+
+
+def moe_gmm_op(x, w):
+    """(E, C, K) × (E, K, N) batched expert GEMM — the capacity-dispatch MoE
+    FFN's gate, up and down projections. Kernel B4 masks the ragged edges,
+    so C, K and N are not padded to 128 as on the TPU."""
+    return moe_gmm(x, w)

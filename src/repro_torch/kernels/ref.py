@@ -205,3 +205,9 @@ def _attend_ragged_gathered(q, k, v, context_lens, q_starts, q_lens, pos0,
     p = torch.where(m, p, torch.zeros_like(p))
     o = torch.einsum("thgl,tlhd->thgd", p, v.float())
     return o.reshape(t, h, d).to(q.dtype)
+
+
+def moe_gmm_ref(x_groups: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched expert GEMM: (E, C, K) × (E, K, N) → (E, C, N), in fp32."""
+    return torch.einsum("eck,ekn->ecn", x_groups.float(),
+                        w.float()).to(x_groups.dtype)

@@ -1,16 +1,19 @@
-"""Parameters of the dense decoder LM, in the JAX package's layout.
+"""Parameters of the decoder LM, in the JAX package's layout.
 
 The tree is the one ``DecoderLM.init`` builds (``src/repro/models/lm.py``)
-for the dense family: ``embed (V, d)``, ``ln_f (d,)``, ``head (d, V)`` and
-``layers`` with a stacked leading layer dim holding ``attn.{wq, wk, wv,
-wo}``, ``ln1``, ``ln2`` and ``mlp.{w_gate, w_up, w_down}``.
+for the dense and MoE families: ``embed (V, d)``, ``ln_f (d,)``, ``head
+(d, V)`` and ``layers`` with a stacked leading layer dim holding
+``attn.{wq, wk, wv, wo}``, ``ln1``, ``ln2`` and either ``mlp.{w_gate,
+w_up, w_down}`` (dense) or ``moe.{router (d, E), w_gate (E, d, f), w_up
+(E, d, f), w_down (E, f, d)}`` (MoE, ``init_moe_params``).
 
 * ``params_from_numpy`` carries a JAX parameter tree across as numpy
   arrays (``jax.tree.map(np.asarray, params)``), so both packages compute
   the same function in the parity tests.
 * ``init_params`` is the port's own initializer, drawing the same
   distributions as the JAX one (normal × 1/sqrt(fan_in), embed × 0.02, zero
-  norms) from a ``torch.Generator``. It is for runs without JAX, such as
+  norms; MoE weights as ``init_moe_params``) from a ``torch.Generator``.
+  It is for runs without JAX, such as
   ``chip_smoke.py`` at full width, and never decides a parity result.
 """
 from __future__ import annotations
@@ -48,11 +51,11 @@ def params_to(params: dict, device) -> dict:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
-    """Random fp32 parameters for a dense-family ``cfg``; the generator must
-    live on ``device``."""
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+    """Random fp32 parameters for a dense- or MoE-family ``cfg``; the
+    generator must live on ``device``."""
+    if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
         raise NotImplementedError(
-            f"init_params covers the dense family; {cfg.name} is "
+            f"init_params covers the dense and MoE families; {cfg.name} is "
             f"{cfg.family} (later slice)")
     dev = torch.device(device)
     d, n = cfg.d_model, cfg.n_layers
@@ -65,21 +68,26 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     def zeros(shape):
         return torch.zeros(shape, device=dev, dtype=torch.float32)
 
-    sd, sq, sf = 1.0 / math.sqrt(d), 1.0 / math.sqrt(cfg.q_dim), \
-        1.0 / math.sqrt(cfg.d_ff)
-    return {
-        "embed": normal((cfg.vocab, d), 0.02),
-        "ln_f": zeros((d,)),
-        "head": normal((d, cfg.vocab), sd),
-        "layers": {
-            "attn": {"wq": normal((n, d, cfg.q_dim), sd),
-                     "wk": normal((n, d, cfg.kv_dim), sd),
-                     "wv": normal((n, d, cfg.kv_dim), sd),
-                     "wo": normal((n, cfg.q_dim, d), sq)},
-            "ln1": zeros((n, d)),
-            "ln2": zeros((n, d)),
-            "mlp": {"w_gate": normal((n, d, cfg.d_ff), sd),
-                    "w_up": normal((n, d, cfg.d_ff), sd),
-                    "w_down": normal((n, cfg.d_ff, d), sf)},
-        },
-    }
+    sd, sq = 1.0 / math.sqrt(d), 1.0 / math.sqrt(cfg.q_dim)
+    # drawn in the order of the tree: embed, head, then the layers
+    params = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": zeros((d,)),
+              "head": normal((d, cfg.vocab), sd)}
+    layers = {"attn": {"wq": normal((n, d, cfg.q_dim), sd),
+                       "wk": normal((n, d, cfg.kv_dim), sd),
+                       "wv": normal((n, d, cfg.kv_dim), sd),
+                       "wo": normal((n, cfg.q_dim, d), sq)},
+              "ln1": zeros((n, d)),
+              "ln2": zeros((n, d))}
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        sf = 1.0 / math.sqrt(f)
+        layers["moe"] = {"router": normal((n, d, e), sd),
+                         "w_gate": normal((n, e, d, f), sd),
+                         "w_up": normal((n, e, d, f), sd),
+                         "w_down": normal((n, e, f, d), sf)}
+    else:
+        sf = 1.0 / math.sqrt(cfg.d_ff)
+        layers["mlp"] = {"w_gate": normal((n, d, cfg.d_ff), sd),
+                         "w_up": normal((n, d, cfg.d_ff), sd),
+                         "w_down": normal((n, cfg.d_ff, d), sf)}
+    return {**params, "layers": layers}

@@ -18,6 +18,12 @@ int8 and fp8-e4m3 pools: both it and its plain version read the same
 dequantized values, so only the fp32 summation order differs. The
 executor's sequential, multi-step and speculative paths give the CPU's
 tokens, fp32 and int8, and their horizons never wait for the device.
+The expert GEMM (B4) is held against its plain version at 2e-4·√K (the
+JAX suite's bar) at chip_smoke's decode steps for mixtral-8x7b and
+kimi-k2-1t-a32b and at edge shapes, and repeats bitwise; the capacity MoE
+FFN with top-8 repeats bitwise run to run (its combine uses no atomics);
+the MoE executor on the card gives the CPU's tokens under both
+``moe_impl``s, B4 launching three times per layer and router chunk.
 """
 import dataclasses
 
@@ -25,18 +31,22 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import MoEConfig, get_reduced
 from repro_torch.core import LinearCostModel, make_scheduler
 from repro_torch.engine import (Engine, EngineConfig,
                                 PagedTransformerExecutor, Request)
+from repro_torch.engine.numerics import ModelTimedExecutor
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
+from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import kv_quant_spec, quantize_kv
-from repro_torch.kernels.ref import (paged_attention_ragged_quant_ref,
+from repro_torch.kernels.ref import (moe_gmm_ref,
+                                     paged_attention_ragged_quant_ref,
                                      paged_attention_ragged_ref,
                                      paged_attention_ref)
 from repro_torch.models import init_params
+from repro_torch.models.moe import moe_capacity, router_chunks
 
 ATOL = 1e-4
 # card vs CPU logits under quantized KV: K/V rows that differ by fp32
@@ -472,3 +482,134 @@ def test_int8_executor_card_matches_cpu(cuda, path):
     assert n_g[0] > 0 and n_g[1:] == (0, 0)
     if path in ("fused", "batched"):
         assert n_g[0] == cfg.n_layers * ex_g.n_dispatches
+
+
+# (E, C, K, N): B4 at chip_smoke's step (h) — mixtral-8x7b decode, C=20,
+# gate/up then down — at serve-16's 16-row decode bucket (C=8, the 8-row
+# tile), and step (k), kimi-k2's 384 experts at C=4 (w holds 5.6e9
+# elements: 64-bit offsets); then edges of the 8-, 32- and 64-row tiles,
+# 128-column tiles and 16-deep K slabs, and N % 4 != 0 (scalar rows)
+MOE_SHAPES = [(8, 20, 4096, 14336), (8, 20, 14336, 4096),
+              (8, 8, 4096, 14336), (8, 8, 14336, 4096),
+              (384, 4, 7168, 2048), (3, 20, 96, 72), (5, 1, 33, 5),
+              (2, 4, 17, 130), (4, 33, 100, 130), (2, 9, 64, 64),
+              (1, 640, 64, 256)]
+
+
+@pytest.mark.parametrize("shape", MOE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_gmm_matches_plain_version(cuda, shape):
+    e, c, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((e, c, k), generator=g, device=cuda).mul_(0.3)
+    w = torch.randn((e, k, n), generator=g, device=cuda).mul_(0.3)
+    before = moe_gmm.launches
+    got = moe_gmm(x, w)
+    want = moe_gmm_ref(x, w)
+    again = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 2
+    assert got.shape == (e, c, n) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 2e-4 * k ** 0.5
+    assert torch.equal(again, got)          # one FMA chain per output
+    del x, w, got, want, again
+    torch.cuda.empty_cache()
+
+
+def test_moe_gmm_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 4, 8), device=cuda)
+    w = torch.zeros((2, 8, 12), device=cuda)
+    with pytest.raises(TypeError):
+        moe_gmm(x.double(), w)
+    with pytest.raises(ValueError):
+        moe_gmm(x, w[:, :7].contiguous())
+    with pytest.raises(ValueError):
+        moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        moe_gmm(x, w.cpu())
+
+
+def test_moe_capacity_repeats_bitwise(cuda):
+    """Top-8 of 64 experts over three router chunks: three runs on the
+    card are bitwise equal, agree with the CPU within fp32 noise, and
+    launch B4 three times per chunk."""
+    cfg = MoEConfig(n_experts=64, top_k=8, d_ff_expert=256, router_chunk=128)
+    d, t = 512, 300
+    gen = torch.Generator().manual_seed(0)
+    params = {"router": torch.randn(d, 64, generator=gen) / d ** 0.5,
+              "w_gate": torch.randn(64, d, 256, generator=gen) / d ** 0.5,
+              "w_up": torch.randn(64, d, 256, generator=gen) / d ** 0.5,
+              "w_down": torch.randn(64, 256, d, generator=gen) / 16.0}
+    x = torch.randn(t, d, generator=gen)
+    valid = torch.rand(t, generator=gen) > 0.1
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    before = moe_gmm.launches
+    outs = [moe_capacity(x.to(cuda), on_card, cfg, valid.to(cuda))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert moe_gmm.launches - before == 3 * 3 * router_chunks(t, cfg) == 27
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    cpu = moe_capacity(x, params, cfg, valid)
+    np.testing.assert_allclose(outs[0].cpu().numpy(), cpu.numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("path", ["fused", "sequential", "multi"])
+@pytest.mark.parametrize("moe_impl", ["exact", "capacity"])
+def test_moe_executor_card_matches_cpu(cuda, moe_impl, path):
+    """Reduced kimi-k2 (top-4 of 8 experts) under the model clock, so both
+    devices see the same plans and so the same capacity drops: the card
+    gives the CPU's tokens and first logits within 1e-4; B4 launches three
+    times per layer and router chunk (64 tokens here) of each fused step
+    under capacity, never under exact; a committed horizon never waits for
+    the device."""
+    cfg = dataclasses.replace(get_reduced("kimi-k2-1t-a32b"), window=None)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = LinearCostModel(a=1e-3, b=1e-4, c=0.0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ex = PagedTransformerExecutor(
+            cfg, params, num_pages=64, page_size=16, max_pages_per_seq=8,
+            mode="sequential" if path == "sequential" else "fused",
+            moe_impl=moe_impl, capture_logits=path != "multi", device=dev)
+        buckets = []
+        if dev == "cuda":
+            ex._multi_decode_step = _no_sync(ex._multi_decode_step)
+            fused_step = ex._fused_step
+            ex._fused_step = lambda st, t: (buckets.append(t),
+                                            fused_step(st, t))[1]
+        eng = Engine(make_scheduler("fairbatching", model, calibrate=False),
+                     ModelTimedExecutor(ex, model), EngineConfig(
+                         5.0, 5.0, commit_horizon=4 if path == "multi"
+                         else 1))
+        rng = np.random.default_rng(3)
+        for i in range(5):
+            plen = int(rng.integers(1, 70))
+            eng.submit(Request(i, arrival=0.0, prompt_len=plen,
+                               max_new_tokens=7, ttft_slo=5.0, tpot_slo=5.0,
+                               tokens=[int(x) for x in rng.integers(
+                                   0, cfg.vocab, plen)]))
+        before, first = moe_gmm.launches, {}
+        while eng.has_work:
+            eng.step()
+            for rid, lg in ex.last_logits.items():
+                first.setdefault(rid, lg)
+        runs[dev] = ({r: q.generated_tokens for r, q in eng.requests.items()},
+                     first, moe_gmm.launches - before, buckets, ex)
+    (tok_g, lg_g, n_g, bk_g, ex_g), (tok_c, lg_c, n_c, _, _) = (
+        runs["cuda"], runs["cpu"])
+    assert tok_g == tok_c
+    assert lg_g.keys() == lg_c.keys()
+    for rid in lg_c:
+        np.testing.assert_allclose(lg_g[rid], lg_c[rid], atol=ATOL, rtol=0)
+    assert n_c == 0
+    if moe_impl == "exact":
+        assert n_g == 0
+    else:
+        assert n_g > 0
+        if path == "fused":
+            assert n_g == sum(3 * cfg.n_layers * router_chunks(t, cfg.moe)
+                              for t in bk_g)
+            assert max(bk_g) > cfg.moe.router_chunk    # two chunks seen
+    if path == "multi":
+        assert any(k[0] == "multi" for k in ex_g.compile_keys)

@@ -41,6 +41,19 @@ def test_port_imports_with_jax_absent():
     assert res.stdout.strip() == "ok"
 
 
+def test_guard_covers_every_slice():
+    """The scans walk the package, so each slice's modules are in them:
+    the MoE slice's model, kernel wrapper and configs included."""
+    mods = _submodules()
+    for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.kimi_k2_1t_a32b",
+              "repro_torch.kernels.paged_attention", "repro_torch.engine"):
+        assert m in mods, m
+    assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
+                                            "chip_smoke.py"}
+
+
 def _bad_imports(source: str, depth: int) -> list[str]:
     """``import jax``/``jax.*``, ``repro``/``repro.*``, and relative
     imports that climb out of the port; ``depth`` is how many packages

@@ -17,6 +17,7 @@ from repro.kernels.paged_attention import paged_attention_ragged as jax_kernel
 from repro.kernels.ref import paged_attention_ragged_ref as jax_ref
 from repro.kernels.ref import paged_attention_ref as jax_batched_ref
 from repro_torch.kernels import _build
+from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels.ops import (paged_attention_op,
                                      paged_attention_ragged_op)
@@ -184,12 +185,13 @@ def test_ctypes_signature_matches_the_c_launcher(name):
     for symbol, params in found:
         want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
                 for p in params.split(",")]
-        assert tpa._SIG[symbol] == want, symbol
+        assert {**tpa._SIG, **tmg._SIG}[symbol] == want, symbol
 
 
 def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
-    """Every kernel includes csrc/attention_tile.cuh: editing it renames
-    every library, so none loads a stale build."""
+    """The attention kernels include csrc/attention_tile.cuh, and the
+    digest covers every header: editing it renames every library (B4's
+    too), so none loads a stale build."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in _build.CSRC.iterdir():
@@ -200,7 +202,7 @@ def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert set(before) == {"paged_attention", "paged_attention_ragged",
-                           "paged_attention_ragged_quant"}
+                           "paged_attention_ragged_quant", "moe_gmm"}
     assert all(before[n] != after[n] for n in before)
 
 

@@ -3,9 +3,14 @@
 
     python3 tools/profile_torch_serve.py [--workload serve16|decode16]
         [--horizon H] [--kv-dtype fp32|int8|fp8_e4m3]
+        [--arch h2o-danube-1.8b|mixtral-8x7b|...] [--layers N]
+        [--moe-impl exact|capacity]
         [--out build/profile/serve_trace.json]
 
-Serves one of ``chip_smoke.py``'s full-width h2o-danube-1.8b workloads —
+Serves one of ``chip_smoke.py``'s full-width workloads on ``--arch``
+(default h2o-danube-1.8b; ``--layers`` cuts the depth, default the
+config's own; a MoE arch runs ``--moe-impl``, default capacity, on
+chip_smoke phase 5d's 512 pages of 128) —
 ``serve16`` (phase 5: 16 seeded requests, prompts of 256-3072 tokens, 32
 new tokens, arrivals 50 ms apart) or ``decode16`` (phase 5b: the same
 prompts all at time 0, 64 new tokens) — with ``commit_horizon=H``
@@ -22,9 +27,10 @@ to show what that check costs. Prints, as JSON lines:
   (a committed horizon's steps count dt / H each; the traced-untraced
   difference is the tracing overhead);
 * ``device_time`` — device milliseconds by kernel class (matmul,
-  attention (every paged-attention kernel), KV scatter, other
-  elementwise/index kernels — quantization among them — copies) from
-  the trace, and each class's share;
+  attention (every paged-attention kernel), moe (the expert GEMM B4),
+  KV scatter, other elementwise/index kernels — quantization and the
+  MoE dispatch among them — copies) from the trace, and each class's
+  share;
 * ``device_busy`` — the union of device activity over the traced serving
   wall time, and its complement, the idle share;
 * ``per_step`` — for steps that carry prefill, decode-only steps and
@@ -39,6 +45,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -59,6 +66,7 @@ from repro_torch.models.weights import init_params  # noqa: E402
 
 CLASSES = (("attention", ("ragged_paged_attention",
                           "batched_paged_attention")),
+           ("moe", ("moe_gmm",)),
            ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_")),
            ("kv_scatter", ("index_put", "indexing_backward", "scatter")))
 
@@ -78,13 +86,14 @@ WORKLOADS = {"serve16": dict(new_tokens=32, gap=0.05),
 
 
 def run(cfg, params, workload: str, horizon: int, kv_dtype: str,
-        check_sync: bool = False):
+        moe_impl: str, check_sync: bool = False):
     w = WORKLOADS[workload]
     reqs = cs.make_requests(cfg, 16, (256, 3072), w["new_tokens"], w["gap"],
                             seed=3, slo=(10.0, 0.25))
-    served = cs.serve(cfg, params, "cuda", reqs, **cs.SERVE_PAGES,
+    pages = cs.SERVE_PAGES if cfg.moe is None else cs.MOE_SERVE_PAGES
+    served = cs.serve(cfg, params, "cuda", reqs, **pages,
                       horizon=horizon, check_sync=check_sync,
-                      kv_dtype=kv_dtype)
+                      kv_dtype=kv_dtype, moe_impl=moe_impl)
     eng, wall = served.eng, served.wall
     pre = [s.t_end - s.t_start for s in eng.steps if s.n_prefill]
     dec = [s.t_end - s.t_start for s in eng.steps if not s.n_prefill]
@@ -115,19 +124,30 @@ def main() -> int:
     ap.add_argument("--horizon", type=int, default=1)
     ap.add_argument("--kv-dtype", choices=("fp32", "int8", "fp8_e4m3"),
                     default="fp32")
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth to serve (default: the config's own)")
+    ap.add_argument("--moe-impl", choices=("exact", "capacity"),
+                    default="capacity")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
-    cfg = get("h2o-danube-1.8b")
+    cfg = get(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     print("workload", json.dumps({"workload": args.workload,
                                   "horizon": args.horizon,
-                                  "kv_dtype": args.kv_dtype}), flush=True)
-    wl = (args.workload, args.horizon, args.kv_dtype)
+                                  "kv_dtype": args.kv_dtype,
+                                  "arch": cfg.name, "layers": cfg.n_layers,
+                                  "moe_impl": (None if cfg.moe is None
+                                               else args.moe_impl)}),
+          flush=True)
+    wl = (args.workload, args.horizon, args.kv_dtype, args.moe_impl)
     run(cfg, params, *wl)                                    # warm-up
     print("untraced", json.dumps(run(cfg, params, *wl)), flush=True)
     if args.horizon > 1:
