@@ -57,6 +57,24 @@ nothing of the JAX package. Phases, each printing its own lines:
    TFLOP/s). After phase 5d the same check runs at every capacity that
    phase's serving run launched B4 at (its decode and prefill buckets):
    the shapes of the main path.
+3e. SSD chunk scan vs plain — ``mamba_chunk_scan`` (B5) against
+   ``mamba_chunk_scan_ref`` at mamba2-1.3b's heads (H=64, P=64, N=128),
+   xdt, b, c ~ N(0, 0.3²), a = −|N(0, 1)|·0.1: (l) B=8 × 2048 tokens
+   (NC=16 chunks of L=128) and (m) one 32768-token prompt (NC=256), the
+   shapes of phase 5e; (n) a 100-token prompt at B=8 (L=100, a prompt
+   shorter than the chunk); each from a zero initial state (as the
+   model's prefill passes it) and from a state ~ N(0, 0.3²) (the TPU
+   kernel has no initial state: an extension). Gate: max abs error ≤
+   1e-4·max(1, max|plain|) on y and on the state (fp32 sums over ≤ 128
+   steps and 128 state columns in another order), the same against fp64
+   on the first sequence's first two heads, a second launch bitwise
+   equal. Timing as in phase 3, no library time: no single PyTorch call
+   computes the SSD scan. Bound = max(bytes of xdt, a_dt, b, c, y and the
+   states / 3.35 TB/s, FLOPs / 67 TFLOP/s), the FLOPs what the inputs
+   need: CBᵀ on the L(L+1)/2 pairs j ≤ i once per batch and chunk (B and
+   C are shared by the heads), per head and chunk the masked scores
+   times X on the same pairs, the chunk's own state (L·N·P FMAs) and,
+   where a nonzero state is carried in, C · state (L·N·P).
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -86,6 +104,12 @@ nothing of the JAX package. Phases, each printing its own lines:
    "sequential"`` and ``commit_horizon=4`` tokens. B4 launches three times
    per layer and router chunk of every capacity forward pass and never
    under exact.
+4e. SSM parity — mamba2-1.3b at full width with 2 layers, the port's own
+   weights (seed 1), through ``DecoderLM.prefill`` (B=2 prompts of 300
+   tokens: NC=3 with L=128, the last chunk padded) and 8 greedy
+   ``decode_step``s on the card and on the CPU: tokens equal, first
+   logits within 1e-3; B5 launched n_layers times in the prefill and
+   never in decode, no other kernel.
 5. serve — the full 24-layer h2o-danube-1.8b (fp32 weights from a seed)
    serves 16 requests through ``Engine`` + the ``fairbatching`` scheduler +
    the fused ``PagedTransformerExecutor``; every request must finish with
@@ -116,11 +140,20 @@ nothing of the JAX package. Phases, each printing its own lines:
    serving numbers (host step medians; device time by kernel class is
    ``tools/profile_torch_serve.py --arch mixtral-8x7b --layers 8``'s) and
    B4's launches by capacity, at which phase 3d's check then runs.
+5e. SSM serving — mamba2-1.3b at full depth (48 layers, 5.8 GB of fp32
+   weights, seed 0) through ``DecoderLM.prefill`` plus greedy
+   ``decode_step``s, each step ending on its tokens' copy to the host:
+   (i) B=8 prompts of 2048 tokens, then 64 steps; (ii) one prompt of
+   32768, then 16 steps. Every token in [0, vocab); B5 launched n_layers
+   times per prefill, at a shape phase 3e checked, and never in decode.
+   Reports the prefill's seconds and tokens/s, the decode step's median
+   host ms, output tokens/s, peak memory, B5's launches and shape.
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
-B2, B4; launches summed over every serving phase on the card: 4, 4b, 4c,
-4d, 5, 5b, 5c, 5d; B4's times at the gate/up shape of the capacity 5d
-launched it at most), and the card's name and power limit.
+B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
+4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B4's times at the gate/up shape of the
+capacity 5d launched it at most, B5's at 5e (i)'s shape from a zero
+state), and the card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -151,14 +184,16 @@ from repro_torch.engine.numerics import ModelTimedExecutor  # noqa: E402
 from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.mamba2_scan import mamba_chunk_scan  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
     dequantize_kv, kv_quant_spec, quantize_kv)
 from repro_torch.kernels.ref import (  # noqa: E402
-    moe_gmm_ref, paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
-    paged_attention_ref)
+    mamba_chunk_scan_ref, moe_gmm_ref, paged_attention_ragged_quant_ref,
+    paged_attention_ragged_ref, paged_attention_ref)
+from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.moe import (  # noqa: E402
     _capacity, chunk_capacity, router_chunks)
 from repro_torch.models.weights import init_params, params_to  # noqa: E402
@@ -351,15 +386,17 @@ def cuda_timer(fn) -> float:
 
 def time_in_turns(timer, kern, plain, library) -> dict:
     """Median ms of the kernel, its plain version and the library call,
-    timed in turns, over N_TIMED rounds after N_WARMUP."""
-    ts = {"ms": [], "plain_ms": [], "library_ms": []}
+    timed in turns, over N_TIMED rounds after N_WARMUP. ``library`` None:
+    no single PyTorch call computes the function, ``library_ms`` is None."""
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
+    ts = {k: [] for k, fn in fns.items() if fn is not None}
     for i in range(N_WARMUP + N_TIMED):
-        for key, fn in (("ms", kern), ("plain_ms", plain),
-                        ("library_ms", library)):
-            dt = timer(fn)
+        for key in ts:
+            dt = timer(fns[key])
             if i >= N_WARMUP:
                 ts[key].append(dt)
-    return {k: statistics.median(v) for k, v in ts.items()}
+    return {"library_ms": None,
+            **{k: statistics.median(v) for k, v in ts.items()}}
 
 
 def poisoned(st):
@@ -776,6 +813,111 @@ def phase_moe_kernels(device, timer, steps=None) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the SSD chunk scan (B5) against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, prompt tokens) of phase 3e at mamba2-1.3b's heads: 5e (i)'s and
+# (ii)'s shapes, then a prompt shorter than the chunk
+SSM_STEPS = (("l_b8_s2048", 8, 2048), ("m_b1_s32768", 1, 32768),
+             ("n_b8_s100", 8, 100))
+
+
+def scan_shape(cfg, batch: int, prompt: int) -> tuple:
+    """(B, NC, L, H, P, N) that ``mamba_seq`` gives B5 for ``batch``
+    prompts of ``prompt`` tokens: chunks of min(chunk, prompt), the last
+    one padded."""
+    s = cfg.ssm
+    chunk = min(s.chunk, prompt)
+    return (batch, -(-prompt // chunk), chunk, s.n_heads(cfg.d_model),
+            s.head_dim, s.d_state)
+
+
+def scan_bound(b, nc, l, h, p, n, carried) -> dict:
+    """xdt, a_dt, b, c and y once, fp32, with the initial and the final
+    state; FLOPs at the fp32 rate, as many as these
+    inputs need: CBᵀ on the L(L+1)/2 pairs j ≤ i the causal mask keeps,
+    once per (batch, chunk) (B and C are shared by the heads); per head
+    and chunk the masked scores times X on the same pairs and the chunk's
+    own state (2·L·N·P), C · state (2·L·N·P) in the ``carried`` chunks a
+    nonzero state enters, and the state carried across (2·P·N)."""
+    nbytes = 4 * (2 * b * nc * l * h * p + b * nc * l * h + 2 * b * nc * l * n
+                  + 2 * b * h * p * n)
+    tri = l * (l + 1) // 2
+    flops = (b * nc * 2 * n * tri
+             + b * nc * h * (2 * p * tri + 2 * l * n * p + 2 * p * n)
+             + b * carried * h * 2 * l * n * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_ssm_kernel(name, shape, nonzero, timer, device, seed=0) -> dict:
+    """B5 vs its plain version at ``shape`` (B, NC, L, H, P, N), from a
+    zero initial state or (``nonzero``) one ~ N(0, 0.3²). Gate: max abs
+    error ≤ 1e-4 · max(1, max|plain|) on y and on the state, the same
+    against fp64 on the first sequence's first two heads, a second launch
+    bitwise equal."""
+    b, nc, l, h, p, n = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shp: torch.randn(shp, generator=g, device=device)
+    x = rnd(b, nc, l, h, p).mul_(0.3)
+    a = rnd(b, nc, l, h).abs_().mul_(-0.1)
+    bm, cm = rnd(b, nc, l, n).mul_(0.3), rnd(b, nc, l, n).mul_(0.3)
+    s0 = (rnd(b, h, p, n).mul_(0.3) if nonzero
+          else torch.zeros((b, h, p, n), device=device))
+    kern = lambda: mamba_chunk_scan(x, a, bm, cm, s0)
+    plain = lambda: mamba_chunk_scan_ref(x, a, bm, cm, s0)
+    (y, st), (y_p, st_p) = kern(), plain()
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    tol_y = ATOL_KERNEL * max(1.0, float(y_p.abs().max()))
+    tol_st = ATOL_KERNEL * max(1.0, float(st_p.abs().max()))
+    y64, st64 = mamba_chunk_scan_ref(
+        x[:1, :, :, :2].double(), a[:1, :, :, :2].double(), bm[:1].double(),
+        cm[:1].double(), s0[:1, :2].double())
+    y2, st2 = kern()
+    carried = nc - 1 + int(nonzero)
+    rec = {"step": name, "B": b, "NC": nc, "L": l, "H": h, "P": p, "N": n,
+           "init_state": "nonzero" if nonzero else "zero",
+           "max_abs_err": float((y - y_p).abs().max()),
+           "state_max_abs_err": float((st - st_p).abs().max()),
+           "tolerance": tol_y, "state_tolerance": tol_st,
+           "fp64_max_abs_err": max(
+               float((y[:1, :, :, :2] - y64).abs().max()),
+               float((st[:1, :2] - st64).abs().max())),
+           "plain_fp64_max_abs_err": max(
+               float((y_p[:1, :, :, :2] - y64).abs().max()),
+               float((st_p[:1, :2] - st64).abs().max())),
+           "repeat_bitwise": torch.equal(y2, y) and torch.equal(st2, st),
+           **scan_bound(b, nc, l, h, p, n, carried)}
+    del y, st, y_p, st_p, y64, st64, y2, st2
+    if (rec["max_abs_err"] > tol_y or rec["state_max_abs_err"] > tol_st
+            or rec["fp64_max_abs_err"] > tol_y or not rec["repeat_bitwise"]):
+        _emit("ssm_kernel_step", rec)
+        raise AssertionError(f"{name}: B5 disagrees with its plain version")
+    rec.update(time_in_turns(timer, kern, plain, None))
+    return rec
+
+
+def phase_ssm_kernels(device, timer, cfg=None, steps=SSM_STEPS) -> list:
+    """Phase 3e at ``cfg``'s heads (mamba2-1.3b by default): every step
+    from a zero and from a nonzero initial state."""
+    cfg = cfg or get("mamba2-1.3b")
+    recs = []
+    for i, (name, batch, prompt) in enumerate(steps):
+        for nonzero in (False, True):
+            tag = f"{name}_{'state' if nonzero else 'zero'}"
+            recs.append(check_ssm_kernel(tag, scan_shape(cfg, batch, prompt),
+                                         nonzero, timer, device, seed=i))
+            _emit("ssm_kernel_step", recs[-1])
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving through the engine
 # ---------------------------------------------------------------------------
 
@@ -795,7 +937,7 @@ def make_requests(cfg, n: int, prompt_range, new_tokens: int, gap: float,
 KERNELS = {"paged_attention_ragged": paged_attention_ragged,
            "paged_attention": paged_attention,
            "paged_attention_ragged_quant": paged_attention_ragged_quant,
-           "moe_gmm": moe_gmm}
+           "moe_gmm": moe_gmm, "mamba2_scan": mamba_chunk_scan}
 # launches of each kernel summed over every serving run on the card
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -1375,6 +1517,156 @@ def phase_moe_serve(cfg, device, *, params=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 4e, 5e: the SSM family through DecoderLM
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Generated:
+    """One ``prefill`` plus greedy ``decode_step``s: tokens (B, steps + 1),
+    the prefill's logits, host seconds of the prefill and of each step,
+    and each kernel's launches in the prefill and in the decode steps."""
+    tokens: np.ndarray
+    first: np.ndarray
+    prefill_s: float
+    step_s: list
+    prefill_launches: dict
+    decode_launches: dict
+
+
+def generate(cfg, params, device, prompts: np.ndarray, steps: int
+             ) -> Generated:
+    """The SSM family's main path: ``DecoderLM.prefill`` then ``steps``
+    greedy ``decode_step``s, each ending on its tokens' copy to the host,
+    as a serving loop checks for a stop token. Every kernel count is set
+    to 0 just before and read just after the prefill and the decode
+    steps; launches on the card add to ``SERVING_LAUNCHES``."""
+    model = DecoderLM(cfg, device=device)
+    toks = torch.as_tensor(prompts, device=model.device)
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, prompts.shape[1] + steps)
+    tok = logits.argmax(-1)
+    out = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    pre = {name: k.launches for name, k in KERNELS.items()}
+    first = logits.cpu().numpy()
+    for k in KERNELS.values():
+        k.launches = 0
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = logits.argmax(-1)
+        out.append(tok.cpu())
+        step_s.append(time.perf_counter() - t)
+    dec = {name: k.launches for name, k in KERNELS.items()}
+    if cuda:
+        for name in KERNELS:
+            SERVING_LAUNCHES[name] += pre[name] + dec[name]
+    return Generated(torch.stack(out, 1).numpy(), first, prefill_s, step_s,
+                     pre, dec)
+
+
+def _ssm_launches_ok(run: Generated, cfg, cuda: bool) -> bool:
+    """B5 n_layers times in the prefill and never in decode; no other
+    kernel anywhere (on the CPU nothing launches)."""
+    want = cfg.n_layers if cuda else 0
+    others = [n for n in KERNELS if n != "mamba2_scan"]
+    return (run.prefill_launches["mamba2_scan"] == want
+            and run.decode_launches["mamba2_scan"] == 0
+            and all(run.prefill_launches[n] == run.decode_launches[n] == 0
+                    for n in others))
+
+
+def phase_ssm_parity(cfg, device, prompt_len=300, steps=8) -> dict:
+    """Phase 4e on ``cfg`` (mamba2-1.3b at full width, depth cut): the
+    port's own weights (seed 1), 2 prompts of ``prompt_len`` tokens, then
+    ``steps`` greedy decode steps, on ``device`` and on the CPU."""
+    cuda = torch.device(device).type == "cuda"
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, prompt_len)).astype(np.int64)
+    d = generate(cfg, params, device, prompts, steps)
+    c = generate(cfg, params_to(params, "cpu"), "cpu", prompts, steps)
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "batch": 2,
+           "prompt_tokens": prompt_len, "decode_steps": steps,
+           "tokens_equal_cpu": bool(np.array_equal(d.tokens, c.tokens)),
+           "first_logits_max_abs_err": float(np.abs(d.first - c.first).max()),
+           "b5_prefill_launches": d.prefill_launches["mamba2_scan"],
+           "b5_decode_launches": d.decode_launches["mamba2_scan"],
+           "scan_shape": list(scan_shape(cfg, 2, prompt_len))}
+    _emit("ssm_parity", rec)
+    if (not rec["tokens_equal_cpu"]
+            or rec["first_logits_max_abs_err"] > ATOL_LOGITS
+            or not _ssm_launches_ok(d, cfg, cuda)):
+        raise AssertionError(f"{cfg.name}: card and CPU disagree")
+    return rec
+
+
+# (batch, prompt tokens, greedy decode steps) of phase 5e
+SSM_SERVE = ((8, 2048, 64), (1, 32768, 16))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_ssm_serve(cfg, device, workloads=SSM_SERVE) -> list:
+    """Phase 5e: ``cfg`` (mamba2-1.3b, every layer) with fp32 weights from
+    seed 0 through ``DecoderLM.prefill`` plus greedy ``decode_step``s.
+    Every token in [0, vocab), B5 launched n_layers times per prefill at a
+    shape phase 3e checked, never in decode."""
+    cuda = torch.device(device).type == "cuda"
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    checked = {scan_shape(cfg, b, s) for _, b, s in SSM_STEPS}
+    recs = []
+    for batch, prompt_len, steps in workloads:
+        prompts = np.random.default_rng(5).integers(
+            0, cfg.vocab, (batch, prompt_len)).astype(np.int64)
+        if cuda:
+            _release_memory()
+            torch.cuda.reset_peak_memory_stats()
+        run = generate(cfg, params, device, prompts, steps)
+        n_out = run.tokens.size
+        decode_s = sum(run.step_s)
+        shape = scan_shape(cfg, batch, prompt_len)
+        rec = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
+               "prompt_tokens": prompt_len, "decode_steps": steps,
+               "prefill_s": run.prefill_s,
+               "prefill_tok_per_s": batch * prompt_len / run.prefill_s,
+               "decode_step_median_ms": statistics.median(run.step_s) * 1e3,
+               "decode_tok_per_s": batch * steps / decode_s,
+               "output_tokens": n_out,
+               "output_tok_per_s": n_out / (run.prefill_s + decode_s),
+               "weight_bytes": sum(t.numel() * 4 for t in _leaves(params)),
+               "max_memory_allocated_bytes": (
+                   torch.cuda.max_memory_allocated() if cuda else None),
+               "b5_prefill_launches": run.prefill_launches["mamba2_scan"],
+               "b5_decode_launches": run.decode_launches["mamba2_scan"],
+               "scan_shape": list(shape)}
+        _emit("ssm_serve", rec)
+        if (run.tokens.min() < 0 or run.tokens.max() >= cfg.vocab
+                or run.tokens.shape != (batch, steps + 1)
+                or not _ssm_launches_ok(run, cfg, cuda)
+                or shape not in checked):
+            raise AssertionError(f"{cfg.name} B={batch} S={prompt_len}: "
+                                 f"bad output, launches or shape")
+        recs.append(rec)
+        del run
+    return recs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1404,12 +1696,16 @@ def main() -> int:
     brecs = phase_batched_kernels("cuda", cuda_timer)
     qrecs = phase_quant_kernels("cuda", cuda_timer)
     mrecs = phase_moe_kernels("cuda", cuda_timer)
+    srecs = phase_ssm_kernels("cuda", cuda_timer)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
     phase_quant_parity(small, "cuda")
     _release_memory()
     phase_moe_parity(dataclasses.replace(get("mixtral-8x7b"), n_layers=2),
+                     "cuda")
+    _release_memory()
+    phase_ssm_parity(dataclasses.replace(get("mamba2-1.3b"), n_layers=2),
                      "cuda")
     cfg = get("h2o-danube-1.8b")
     _release_memory()
@@ -1431,12 +1727,15 @@ def main() -> int:
     _release_memory()
     served_mrecs = phase_moe_kernels("cuda", cuda_timer,
                                      serve_moe_steps(by_c, mix))
+    _release_memory()
+    phase_ssm_serve(get("mamba2-1.3b"), "cuda")
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     main_brec = brecs[0]          # step (d), pages of 128: decode batches
     main_qrec = qrecs[0]          # step (a), int8, pages of 128
     mrecs += served_mrecs
     main_mrec = served_mrecs[0]   # gate/up at 5d's most launched C
+    main_srec = srecs[0]          # step (l), zero state: 5e (i)'s shape
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -1470,7 +1769,16 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in mrecs),
         "ms": main_mrec["ms"], "plain_ms": main_mrec["plain_ms"],
         "bound_ms": main_mrec["bound_ms"], "bound_by": main_mrec["bound_by"],
-        "library_ms": main_mrec["library_ms"]}]
+        "library_ms": main_mrec["library_ms"]}, {
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan.py:64",
+        "launches": SERVING_LAUNCHES["mamba2_scan"],
+        "max_abs_err": max(max(r["max_abs_err"], r["state_max_abs_err"])
+                           for r in srecs),
+        "ms": main_srec["ms"], "plain_ms": main_srec["plain_ms"],
+        "bound_ms": main_srec["bound_ms"], "bound_by": main_srec["bound_by"],
+        "library_ms": main_srec["library_ms"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,6 @@
-"""Config registry: the architectures the port serves so far.
+"""Config registry: the architectures the port runs so far — the dense
+and MoE families the paged executor serves, and the SSM family (mamba2)
+that ``models.lm.DecoderLM`` runs.
 
 ``base.py`` and the config modules are copies of ``src/repro/configs``;
 later slices add the remaining architectures to ``_load_all``.
@@ -14,7 +16,7 @@ def _load_all() -> None:
     if _LOADED:
         return
     from . import (h2o_danube_1_8b, kimi_k2_1t_a32b,  # noqa: F401
-                   mixtral_8x7b, stablelm_3b)
+                   mamba2_1_3b, mixtral_8x7b, stablelm_3b)
     _LOADED = True
 
 

@@ -34,8 +34,9 @@
   tokens to the host synchronizes).
 
 Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding,
-the SSM and hybrid families, ``attach_cache`` (the prefix cache) and
-speculative decode on a MoE target.
+``attach_cache`` (the prefix cache) and speculative decode on a MoE
+target. The SSM and hybrid families are refused as the JAX executor
+refuses them: the SSM family runs through ``models.lm.DecoderLM``.
 """
 from __future__ import annotations
 
@@ -295,7 +296,10 @@ class PagedTransformerExecutor:
         if mesh is not None:
             raise _later("mesh sharding", "queue A13")
         if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
-            raise _later(f"the {cfg.family} family", "queue A12")
+            raise NotImplementedError(
+                f"the paged executor serves the dense and MoE families, as "
+                f"the JAX one does; {cfg.name} ({cfg.family}) runs through "
+                f"models.lm.DecoderLM")
         # MoE FFN path: "exact" (dense per-token oracle) keeps fused ==
         # sequential tokens; "capacity" (the production dispatch, kernel
         # B4) sizes its capacity per router chunk, so its token drops —

@@ -30,7 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 SOURCES = {"paged_attention_ragged": "paged_attention_ragged.cu",
            "paged_attention": "paged_attention.cu",
            "paged_attention_ragged_quant": "paged_attention_ragged_quant.cu",
-           "moe_gmm": "moe_gmm.cu"}
+           "moe_gmm": "moe_gmm.cu",
+           "mamba2_scan": "mamba2_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

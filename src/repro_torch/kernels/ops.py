@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .mamba2_scan import mamba_chunk_scan
 from .moe_gmm import moe_gmm
 from .paged_attention import (paged_attention, paged_attention_ragged,
                               paged_attention_ragged_quant)
@@ -78,3 +79,16 @@ def moe_gmm_op(x, w):
     FFN's gate, up and down projections. Kernel B4 masks the ragged edges,
     so C, K and N are not padded to 128 as on the TPU."""
     return moe_gmm(x, w)
+
+
+def mamba_chunk_scan_op(xdt, a_dt, b, c, init_state=None):
+    """SSD chunk scan over pre-chunked inputs (kernel B5): xdt (B, NC, L,
+    H, P), a_dt (B, NC, L, H), b and c (B, NC, L, N), init_state (B, H, P,
+    N) or None for zeros. Returns (y (B, NC, L, H, P), the final state
+    (B, H, P, N), the model convention), what the model's ``ssd_chunked``
+    computes. The inputs are made contiguous here (``b`` and ``c`` are
+    split views of the conv output); unlike the TPU op this one takes an
+    initial state, which ``mamba_seq`` seeds from its cache."""
+    return mamba_chunk_scan(
+        xdt.contiguous(), a_dt.contiguous(), b.contiguous(), c.contiguous(),
+        None if init_state is None else init_state.contiguous())

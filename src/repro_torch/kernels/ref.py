@@ -211,3 +211,54 @@ def moe_gmm_ref(x_groups: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched expert GEMM: (E, C, K) × (E, K, N) → (E, C, N), in fp32."""
     return torch.einsum("eck,ekn->ecn", x_groups.float(),
                         w.float()).to(x_groups.dtype)
+
+
+def segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., l, h) log decays → (..., h, l, l): the sum of a over (j, i]
+    at [i, j], -inf above the diagonal (its exp is exactly 0 there); the
+    JAX ``models/mamba2._segsum``."""
+    l = a.shape[-2]
+    cs = torch.cumsum(a.movedim(-1, -2), dim=-1)             # (..., h, l)
+    diff = cs[..., :, None] - cs[..., None, :]
+    causal = torch.ones(l, l, dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~causal, float("-inf"))
+
+
+def mamba_chunk_scan_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor,
+                         init_state: Optional[torch.Tensor] = None):
+    """SSD over pre-chunked inputs (the Mamba2 chunk scan), in fp32 (fp64
+    for fp64 inputs: a check's exact answer).
+
+    xdt: (B, NC, L, H, P) inputs times dt; a_dt: (B, NC, L, H) log decays
+    (A·dt, negative); b, c: (B, NC, L, N) (n_groups = 1); init_state:
+    (B, H, P, N) or None for zeros. Returns (y (B, NC, L, H, P), the state
+    after the last chunk (B, H, P, N)), the model's convention. The math
+    of the JAX ``models/mamba2.ssd_chunked`` written as pairwise
+    contractions: CBᵀ once per chunk, ⊙ each head's segment decay, @ X (a
+    four-operand einsum would build a (B, NC, L, H, L, N) intermediate)."""
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x, a, b, c = (t.to(dt) for t in (xdt, a_dt, b, c))
+    bsz, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    a_cum = torch.cumsum(a, dim=2)                            # (b,c,l,h)
+    ldec = torch.exp(segsum(a))                               # (b,c,h,l,s)
+    cb = torch.einsum("bcln,bcsn->bcls", c, b)
+    y_diag = torch.matmul(cb[:, :, None] * ldec,
+                          x.permute(0, 1, 3, 2, 4))           # (b,c,h,l,p)
+    y_diag = y_diag.permute(0, 1, 3, 2, 4)                    # (b,c,l,h,p)
+
+    decay_states = torch.exp(a_cum[:, :, -1:, :] - a_cum)     # (b,c,l,h)
+    states = torch.einsum("bclhp,bcln->bchpn",
+                          x * decay_states[..., None], b)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])               # (b,c,h)
+    carry = (torch.zeros(bsz, h, p, n, dtype=dt, device=x.device)
+             if init_state is None else init_state.to(dt))
+    prev = []
+    for i in range(nc):                       # the state before each chunk
+        prev.append(carry)
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)                    # (b,c,h,p,n)
+    y_off = torch.einsum("bcln,bchpn->bclhp", c, prev_states)
+    y_off = y_off * torch.exp(a_cum)[..., None]
+    return y_diag + y_off, carry

@@ -1,4 +1,4 @@
-"""Model primitives shared by every layer: RMSNorm and SiLU.
+"""Model primitives shared by every layer: RMSNorm, SiLU and softplus.
 
 Port of ``src/repro/models/module.py``. Parameters are plain dicts of
 tensors, in the JAX package's layout.
@@ -19,3 +19,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``, no linear cut-off as in ``torch.nn.functional.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))

@@ -24,6 +24,13 @@ kimi-k2-1t-a32b and at edge shapes, and repeats bitwise; the capacity MoE
 FFN with top-8 repeats bitwise run to run (its combine uses no atomics);
 the MoE executor on the card gives the CPU's tokens under both
 ``moe_impl``s, B4 launching three times per layer and router chunk.
+The SSD chunk scan (B5) is held against its plain version at 1e-4 ×
+max(1, max|plain|) (fp32 sums over at most 128 steps and 128 state
+columns, in another order) over chunk lengths 5-128, the JAX suite's
+sweep, mamba2-1.3b's widths (H 64, P 64, N 128) and its reduced config's,
+with and without an initial state, and repeats bitwise; the reduced
+mamba2-1.3b ``DecoderLM`` on the card gives the CPU's greedy tokens, B5
+launching once per layer per prefill and never in a decode step.
 """
 import dataclasses
 
@@ -37,16 +44,18 @@ from repro_torch.engine import (Engine, EngineConfig,
                                 PagedTransformerExecutor, Request)
 from repro_torch.engine.numerics import ModelTimedExecutor
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
+from repro_torch.kernels.mamba2_scan import mamba_chunk_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import kv_quant_spec, quantize_kv
-from repro_torch.kernels.ref import (moe_gmm_ref,
+from repro_torch.kernels.ref import (mamba_chunk_scan_ref, moe_gmm_ref,
                                      paged_attention_ragged_quant_ref,
                                      paged_attention_ragged_ref,
                                      paged_attention_ref)
-from repro_torch.models import init_params
+from repro_torch.models import build_model, init_params
 from repro_torch.models.moe import moe_capacity, router_chunks
+from repro_torch.models.weights import params_to
 
 ATOL = 1e-4
 # card vs CPU logits under quantized KV: K/V rows that differ by fp32
@@ -613,3 +622,85 @@ def test_moe_executor_card_matches_cpu(cuda, moe_impl, path):
             assert max(bk_g) > cfg.moe.router_chunk    # two chunks seen
     if path == "multi":
         assert any(k[0] == "multi" for k in ex_g.compile_keys)
+
+
+# (B, NC, L, H, P, N): the JAX suite's sweep, ragged chunks of 5-100 steps
+# (prompts shorter than the chunk), P != N, more heads than a block takes,
+# the reduced mamba2-1.3b (8 heads of 16, N 16) and its full widths
+SCAN_SHAPES = [(1, 2, 8, 2, 8, 8), (2, 3, 16, 4, 16, 8), (2, 4, 32, 2, 32, 16),
+               (1, 3, 5, 3, 12, 4), (2, 2, 33, 9, 16, 16),
+               (2, 1, 24, 8, 16, 16), (1, 4, 127, 5, 64, 128),
+               (2, 3, 100, 64, 64, 128), (2, 3, 128, 64, 64, 128)]
+
+
+def _scan_inputs(shape, device, seed=0):
+    b, nc, l, h, p, n = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g, device=device)
+    return (f(b, nc, l, h, p) * 0.3, -f(b, nc, l, h).abs() * 0.1,
+            f(b, nc, l, n) * 0.3, f(b, nc, l, n) * 0.3, f(b, h, p, n) * 0.3)
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mamba_chunk_scan_matches_plain_version(cuda, shape, init):
+    x, a, b, c, s0 = _scan_inputs(shape, cuda)
+    s0 = s0 if init else None
+    before = mamba_chunk_scan.launches
+    y, st = mamba_chunk_scan(x, a, b, c, s0)
+    y2, st2 = mamba_chunk_scan(x, a, b, c, s0)
+    yr, str_ = mamba_chunk_scan_ref(x, a, b, c, s0)
+    torch.cuda.synchronize()
+    assert mamba_chunk_scan.launches == before + 2
+    assert y.shape == shape[:5] and st.shape == str_.shape
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = 1e-4 * max(1.0, float(yr.abs().max()))
+    assert float((y - yr).abs().max()) < tol
+    tol = 1e-4 * max(1.0, float(str_.abs().max()))
+    assert float((st - str_).abs().max()) < tol
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def test_mamba_chunk_scan_rejects_what_it_does_not_take(cuda):
+    x, a, b, c, s0 = _scan_inputs((1, 2, 16, 2, 16, 16), cuda)
+    with pytest.raises(TypeError):
+        mamba_chunk_scan(x.double(), a, b, c)
+    with pytest.raises(ValueError, match="L=129"):
+        xl, al, bl, cl, _ = _scan_inputs((1, 1, 129, 2, 16, 16), cuda)
+        mamba_chunk_scan(xl, al, bl, cl)
+    with pytest.raises(ValueError):       # a state of another shape
+        mamba_chunk_scan(x, a, b, c, s0[..., :8].contiguous())
+    with pytest.raises(ValueError):
+        mamba_chunk_scan(x, a, b.cpu(), c)
+
+
+@pytest.mark.parametrize("slen", [10, 40])
+def test_ssm_decoder_card_matches_cpu(cuda, slen):
+    """Reduced mamba2-1.3b, the port's weights: prefill and 4 greedy decode
+    steps give the CPU's tokens, logits within 1e-4 × max(1, |logits|);
+    B5 launches n_layers times in the prefill and never in decode."""
+    cfg = get_reduced("mamba2-1.3b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(slen).integers(
+        0, cfg.vocab, (3, slen)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, device=dev)
+        p = params_to(params, dev)
+        before = mamba_chunk_scan.launches
+        logits, cache = m.prefill(p, toks.to(dev), max_len=slen + 4)
+        n_pre = mamba_chunk_scan.launches - before
+        out, first = [], logits.cpu()
+        for _ in range(4):
+            t = logits.argmax(-1)
+            out.append(t.tolist())
+            logits, cache = m.decode_step(p, t, cache)
+        runs[dev] = (out, first, n_pre, mamba_chunk_scan.launches - before)
+    (tok_g, lg_g, pre_g, all_g), (tok_c, lg_c, pre_c, all_c) = (
+        runs["cuda"], runs["cpu"])
+    assert tok_g == tok_c
+    tol = 1e-4 * max(1.0, float(lg_c.abs().max()))
+    assert float((lg_g - lg_c).abs().max()) < tol
+    assert pre_g == all_g == cfg.n_layers
+    assert pre_c == all_c == 0

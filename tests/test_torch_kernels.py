@@ -17,6 +17,7 @@ from repro.kernels.paged_attention import paged_attention_ragged as jax_kernel
 from repro.kernels.ref import paged_attention_ragged_ref as jax_ref
 from repro.kernels.ref import paged_attention_ref as jax_batched_ref
 from repro_torch.kernels import _build
+from repro_torch.kernels import mamba2_scan as tms
 from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels.ops import (paged_attention_op,
@@ -185,13 +186,13 @@ def test_ctypes_signature_matches_the_c_launcher(name):
     for symbol, params in found:
         want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
                 for p in params.split(",")]
-        assert {**tpa._SIG, **tmg._SIG}[symbol] == want, symbol
+        assert {**tpa._SIG, **tmg._SIG, **tms._SIG}[symbol] == want, symbol
 
 
 def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
     """The attention kernels include csrc/attention_tile.cuh, and the
     digest covers every header: editing it renames every library (B4's
-    too), so none loads a stale build."""
+    and B5's too), so none loads a stale build."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in _build.CSRC.iterdir():
@@ -202,7 +203,8 @@ def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert set(before) == {"paged_attention", "paged_attention_ragged",
-                           "paged_attention_ragged_quant", "moe_gmm"}
+                           "paged_attention_ragged_quant", "moe_gmm",
+                           "mamba2_scan"}
     assert all(before[n] != after[n] for n in before)
 
 

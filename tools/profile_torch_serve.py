@@ -3,8 +3,8 @@
 
     python3 tools/profile_torch_serve.py [--workload serve16|decode16]
         [--horizon H] [--kv-dtype fp32|int8|fp8_e4m3]
-        [--arch h2o-danube-1.8b|mixtral-8x7b|...] [--layers N]
-        [--moe-impl exact|capacity]
+        [--arch h2o-danube-1.8b|mixtral-8x7b|mamba2-1.3b|...]
+        [--layers N] [--moe-impl exact|capacity]
         [--out build/profile/serve_trace.json]
 
 Serves one of ``chip_smoke.py``'s full-width workloads on ``--arch``
@@ -28,9 +28,11 @@ to show what that check costs. Prints, as JSON lines:
   difference is the tracing overhead);
 * ``device_time`` — device milliseconds by kernel class (matmul,
   attention (every paged-attention kernel), moe (the expert GEMM B4),
-  KV scatter, other elementwise/index kernels — quantization and the
-  MoE dispatch among them — copies) from the trace, and each class's
-  share;
+  ssm (the SSD chunk scan B5), KV scatter, other elementwise/index
+  kernels — quantization and the MoE dispatch among them — copies) from
+  the trace, and each class's share;
+* ``ssm_launches_ms`` (SSM archs) — the ``ssm`` class's device ms by
+  B5's three launches (chunk states, state pass, chunk scan);
 * ``device_busy`` — the union of device activity over the traced serving
   wall time, and its complement, the idle share;
 * ``per_step`` — for steps that carry prefill, decode-only steps and
@@ -41,6 +43,12 @@ to show what that check costs. Prints, as JSON lines:
 
 The chrome trace is written to ``--out``. Needs one CUDA card and nvcc;
 imports nothing of JAX.
+
+For an SSM arch (mamba2-1.3b) the workload is chip_smoke phase 5e (i)
+instead: ``DecoderLM.prefill`` of 8 prompts of 2048 tokens, then 64
+greedy ``decode_step``s, each ending on its tokens' copy to the host; the
+spans are ``prefill`` and ``decode_step``, and kernel B5 is the ``ssm``
+class.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -62,11 +71,14 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.engine import PagedTransformerExecutor  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.weights import init_params  # noqa: E402
 
 CLASSES = (("attention", ("ragged_paged_attention",
                           "batched_paged_attention")),
            ("moe", ("moe_gmm",)),
+           ("ssm", ("chunk_state_kernel", "state_pass_kernel",
+                    "chunk_scan_kernel")),
            ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_")),
            ("kv_scatter", ("index_put", "indexing_backward", "scatter")))
 
@@ -106,6 +118,18 @@ def run(cfg, params, workload: str, horizon: int, kv_dtype: str,
             "decode_step_median_s": statistics.median(dec) if dec else None}
 
 
+def run_ssm(cfg, params, batch: int, prompt: int, steps: int):
+    """chip_smoke phase 5e's path: prefill, then greedy decode steps."""
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab, (batch, prompt)).astype(np.int64)
+    g = cs.generate(cfg, params, "cuda", prompts, steps)
+    wall = g.prefill_s + sum(g.step_s)
+    return {"wall_s": wall, "output_tok_per_s": g.tokens.size / wall,
+            "prefill_s": g.prefill_s,
+            "decode_step_median_s": statistics.median(g.step_s),
+            "b5_launches": g.prefill_launches["mamba2_scan"]}
+
+
 def busy_union(spans) -> float:
     total, end = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -140,17 +164,22 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    print("workload", json.dumps({"workload": args.workload,
-                                  "horizon": args.horizon,
-                                  "kv_dtype": args.kv_dtype,
-                                  "arch": cfg.name, "layers": cfg.n_layers,
-                                  "moe_impl": (None if cfg.moe is None
-                                               else args.moe_impl)}),
-          flush=True)
-    wl = (args.workload, args.horizon, args.kv_dtype, args.moe_impl)
-    run(cfg, params, *wl)                                    # warm-up
-    print("untraced", json.dumps(run(cfg, params, *wl)), flush=True)
-    if args.horizon > 1:
+    ssm = cfg.family == "ssm"
+    if ssm:       # (batch, prompt tokens, decode steps) of phase 5e (i)
+        wl = cs.SSM_SERVE[0]
+        go = lambda: run_ssm(cfg, params, *wl)
+        desc = dict(zip(("batch", "prompt", "steps"), wl))
+    else:
+        wl = (args.workload, args.horizon, args.kv_dtype, args.moe_impl)
+        go = lambda: run(cfg, params, *wl)
+        desc = {"workload": args.workload, "horizon": args.horizon,
+                "kv_dtype": args.kv_dtype,
+                "moe_impl": None if cfg.moe is None else args.moe_impl}
+    print("workload", json.dumps({"arch": cfg.name, "layers": cfg.n_layers,
+                                  **desc}), flush=True)
+    go()                                                     # warm-up
+    print("untraced", json.dumps(go()), flush=True)
+    if args.horizon > 1 and not ssm:
         print("untraced_sync_checked", json.dumps(run(
             cfg, params, *wl, check_sync=True)), flush=True)
 
@@ -158,6 +187,7 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     execute = PagedTransformerExecutor.execute
     execute_multi = PagedTransformerExecutor.execute_multi
+    prefill, decode_step = DecoderLM.prefill, DecoderLM.decode_step
     horizons = []
 
     def spanned(self, plan, requests, now):
@@ -170,14 +200,29 @@ def main() -> int:
         with torch.profiler.record_function("multi_dispatch"):
             return execute_multi(self, plan, requests, now, horizon, **kw)
 
+    # an SSM span ends where the caller's token copy waits for the device
+    def spanned_prefill(self, *a, **kw):
+        with torch.profiler.record_function("prefill"):
+            out = prefill(self, *a, **kw)
+            torch.cuda.synchronize()
+            return out
+
+    def spanned_decode(self, *a, **kw):
+        with torch.profiler.record_function("decode_step"):
+            out = decode_step(self, *a, **kw)
+            torch.cuda.synchronize()
+            return out
+
     PagedTransformerExecutor.execute = spanned
     PagedTransformerExecutor.execute_multi = spanned_multi
+    DecoderLM.prefill, DecoderLM.decode_step = spanned_prefill, spanned_decode
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            traced = run(cfg, params, *wl)
+            traced = go()
     finally:
         PagedTransformerExecutor.execute = execute
         PagedTransformerExecutor.execute_multi = execute_multi
+        DecoderLM.prefill, DecoderLM.decode_step = prefill, decode_step
     print("traced", json.dumps(traced), flush=True)
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -195,6 +240,14 @@ def main() -> int:
     total = sum(by_cls.values())
     print("device_time", json.dumps({
         "ms": by_cls, "share": {k: v / total for k, v in by_cls.items()}}))
+    if ssm:       # B5's three launches apart
+        parts: dict[str, float] = {}
+        for e in dev:
+            low = e.get("name", "").lower()
+            for key in dict(CLASSES)["ssm"]:
+                if key in low:
+                    parts[key] = parts.get(key, 0.0) + e["dur"] / 1e3
+        print("ssm_launches_ms", json.dumps(parts))
     busy = busy_union((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e6
     print("device_busy", json.dumps({
         "busy_s": busy, "serve_wall_s": traced["wall_s"],
@@ -205,7 +258,7 @@ def main() -> int:
     # copy to the host, which waits for the device
     spans = [e for e in events if e.get("cat") == "user_annotation"
              and e.get("name") in ("prefill_step", "decode_step",
-                                   "multi_dispatch")]
+                                   "multi_dispatch", "prefill")]
     dev.sort(key=lambda e: e["ts"])
     per: dict[str, dict] = {}
     for sp in spans:
