@@ -43,7 +43,17 @@ nothing of the JAX package. Phases, each printing its own lines:
    value slots leave the output bit-identical. Timing as in phase 3; the
    bound counts 1 byte per K/V element plus 4 per row scale (q, output
    and tables f32 / int32); the library yardstick is phase 3's SDPA over
-   the dequantized view, dequantized before timing.
+   the dequantized view, dequantized before timing. Then the split-KV
+   decode tiles at their boundaries, pages of 128, both formats: 64
+   decode rows at context (o) split - 1, (p) split and (q) split + 1 keys
+   (``quant_plan``'s split of 512 for the 2048-key tables of step (b)),
+   and (r) 64 rows at 2048 with a 300-key window, which starts inside a
+   split. Every step also times B1 (``paged_attention_ragged``) on the
+   step's fp32 pools in the same turns (``b1_ms``): the same work at 4
+   bytes per element, on the tile body B2 had before. ``graph_ms`` and
+   ``b1_graph_ms`` time each call's device work alone (CUDA-graph replay):
+   a decode step's ~0.1 ms of host time before the first launch is in
+   ``ms``, not in them.
 3d. expert GEMM vs plain — ``moe_gmm`` (B4) against ``moe_gmm_ref`` and
    ``torch.bmm`` (fp32, TF32 off) at the capacity path's shapes, x and w
    ~ N(0, 0.3²): mixtral-8x7b (E=8, d=4096, f=14336) gate/up (K=4096,
@@ -54,9 +64,10 @@ nothing of the JAX package. Phases, each printing its own lines:
    < 2e-4·√K (tests/test_kernels.py) and a second launch bitwise equal;
    the error relative to max|plain| is reported. Timing as in phase 3;
    bound = max(bytes of x, w and the output / 3.35 TB/s, 2·E·C·K·N / 67
-   TFLOP/s). After phase 5d the same check runs at every capacity that
-   phase's serving run launched B4 at (its decode and prefill buckets):
-   the shapes of the main path.
+   TFLOP/s); ``graph_ms`` and ``library_graph_ms`` time B4's and bmm's
+   device work alone (CUDA-graph replay). After phase 5d the same check
+   runs at every capacity that phase's serving run launched B4 at (its
+   decode and prefill buckets): the shapes of the main path.
 3e. SSD chunk scan vs plain — ``mamba_chunk_scan`` (B5) against
    ``mamba_chunk_scan_ref`` at mamba2-1.3b's heads (H=64, P=64, N=128),
    xdt, b, c ~ N(0, 0.3²), a = −|N(0, 1)|·0.1: (l) B=8 × 2048 tokens
@@ -151,9 +162,13 @@ nothing of the JAX package. Phases, each printing its own lines:
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
-4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B4's times at the gate/up shape of the
-capacity 5d launched it at most, B5's at 5e (i)'s shape from a zero
-state), and the card's name and power limit.
+4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B2's times at step (a), int8, pages of
+128, with B1's time from the same call (``b1_ms``) and step (b)'s as
+``decode_*``; B4's at the gate/up shape of the capacity 5d launched it at
+most, with the gate/up shape of the largest capacity 5d launched as
+``prefill_*``; ``*graph_ms`` are device times alone, by CUDA-graph
+replay; B5's at 5e (i)'s shape from a zero state), and the card's name
+and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -233,10 +248,20 @@ class Step:
         return lo, hi
 
 
+# phase 3c's split-boundary steps: 64 decode rows at this context and
+# window over step (b)'s 2048-key tables (quant_plan: splits of 512)
+SPLIT_STEPS = {"o_ctx511": (511, None), "p_ctx512": (512, None),
+               "q_ctx513": (513, None), "r_window300": (2048, 300)}
+
+
 def _layout(kind: str, rng: np.random.Generator):
-    """(q_lens, pos0, ctx, window, max_ctx) of step a, b or c."""
+    """(q_lens, pos0, ctx, window, max_ctx) of step a, b, c or one of
+    ``SPLIT_STEPS``."""
     if kind == "b_decode":
         return [1] * 64, [2047] * 64, [2048] * 64, None, 2048
+    if kind in SPLIT_STEPS:
+        c, window = SPLIT_STEPS[kind]
+        return [1] * 64, [c - 1] * 64, [c] * 64, window, 2048
     window, max_ctx = (None, 4096) if kind == "a_mixed" else (4096, 8192)
     q_lens, pos0, ctx = [], [], []
     for _ in range(4):                     # prefill chunks
@@ -384,11 +409,32 @@ def cuda_timer(fn) -> float:
     return a.elapsed_time(b)
 
 
-def time_in_turns(timer, kern, plain, library) -> dict:
+def graph_timer(fn, reps: int = 5, windows: int = 3) -> float:
+    """Milliseconds of one call's device work alone: the call captured in a
+    CUDA graph and replayed ``reps`` times between two events, the median
+    of ``windows`` (``cuda_timer`` of one call from an idle card also
+    counts the host's time to the first launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                  # warm up off the capture stream, as CUDA wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = [cuda_timer(lambda: [graph.replay() for _ in range(reps)]) / reps
+             for _ in range(windows)]
+    del graph
+    return statistics.median(times)
+
+
+def time_in_turns(timer, kern, plain, library, **others) -> dict:
     """Median ms of the kernel, its plain version and the library call,
     timed in turns, over N_TIMED rounds after N_WARMUP. ``library`` None:
-    no single PyTorch call computes the function, ``library_ms`` is None."""
-    fns = {"ms": kern, "plain_ms": plain, "library_ms": library}
+    no single PyTorch call computes the function, ``library_ms`` is None.
+    ``others`` (name: function) are timed in the same turns."""
+    fns = {"ms": kern, "plain_ms": plain, "library_ms": library, **others}
     ts = {k: [] for k, fn in fns.items() if fn is not None}
     for i in range(N_WARMUP + N_TIMED):
         for key in ts:
@@ -705,21 +751,28 @@ def check_quant_kernel(st: Step, fmt: str, timer) -> dict:
         _emit("quant_kernel_step", rec)
         raise AssertionError(f"{st.name}/{fmt}/page {st.page}: B2 "
                              f"disagrees with its plain version")
-    rec.update(time_in_turns(timer, kern, plain, lib_fn))
+    b1 = lambda: paged_attention_ragged(q, kp, vp, tables, *meta,
+                                        window=st.window)
+    rec.update(time_in_turns(timer, kern, plain, lib_fn, b1_ms=b1))
+    if q.is_cuda:
+        rec.update(graph_ms=graph_timer(kern), b1_graph_ms=graph_timer(b1))
     return rec
 
 
 def phase_quant_kernels(device, timer) -> list:
+    """Phase 3c: steps (a)-(c) at pages of 128 and 16, then the split
+    steps (o)-(r) at pages of 128, each in int8 and fp8-e4m3."""
     recs = []
-    for kind in ("a_mixed", "b_decode", "c_window"):
-        for page in (128, 16):
-            st = make_step(kind, page, device)
-            for fmt in ("int8", "fp8_e4m3"):
-                recs.append(check_quant_kernel(st, fmt, timer))
-                _emit("quant_kernel_step", recs[-1])
-            del st
-            if torch.device(device).type == "cuda":
-                torch.cuda.empty_cache()
+    steps = [(kind, page) for kind in ("a_mixed", "b_decode", "c_window")
+             for page in (128, 16)] + [(kind, 128) for kind in SPLIT_STEPS]
+    for kind, page in steps:
+        st = make_step(kind, page, device)
+        for fmt in ("int8", "fp8_e4m3"):
+            recs.append(check_quant_kernel(st, fmt, timer))
+            _emit("quant_kernel_step", recs[-1])
+        del st
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
     return recs
 
 
@@ -788,6 +841,9 @@ def check_moe_kernel(name, e, c, k, n, w, timer, device, seed=0) -> dict:
         _emit("moe_kernel_step", rec)
         raise AssertionError(f"{name}: B4 disagrees with its plain version")
     rec.update(time_in_turns(timer, kern, plain, library))
+    if x.is_cuda:
+        rec.update(graph_ms=graph_timer(kern),
+                   library_graph_ms=graph_timer(library))
     return rec
 
 
@@ -1733,8 +1789,11 @@ def main() -> int:
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     main_brec = brecs[0]          # step (d), pages of 128: decode batches
     main_qrec = qrecs[0]          # step (a), int8, pages of 128
+    dec_qrec = qrecs[4]           # step (b), int8, pages of 128
     mrecs += served_mrecs
     main_mrec = served_mrecs[0]   # gate/up at 5d's most launched C
+    pre_mrec = max((r for r in served_mrecs if r["step"].endswith("gate_up")),
+                   key=lambda r: r["C"])   # gate/up at 5d's largest C
     main_srec = srecs[0]          # step (l), zero state: 5e (i)'s shape
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
@@ -1761,7 +1820,11 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in qrecs),
         "ms": main_qrec["ms"], "plain_ms": main_qrec["plain_ms"],
         "bound_ms": main_qrec["bound_ms"], "bound_by": main_qrec["bound_by"],
-        "library_ms": main_qrec["library_ms"]}, {
+        "library_ms": main_qrec["library_ms"],
+        "graph_ms": main_qrec["graph_ms"], "b1_ms": main_qrec["b1_ms"],
+        "decode_ms": dec_qrec["ms"], "decode_graph_ms": dec_qrec["graph_ms"],
+        "decode_b1_ms": dec_qrec["b1_ms"],
+        "decode_bound_ms": dec_qrec["bound_ms"]}, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:38",
@@ -1769,7 +1832,13 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in mrecs),
         "ms": main_mrec["ms"], "plain_ms": main_mrec["plain_ms"],
         "bound_ms": main_mrec["bound_ms"], "bound_by": main_mrec["bound_by"],
-        "library_ms": main_mrec["library_ms"]}, {
+        "library_ms": main_mrec["library_ms"],
+        "graph_ms": main_mrec["graph_ms"],
+        "prefill_C": pre_mrec["C"], "prefill_ms": pre_mrec["ms"],
+        "prefill_library_ms": pre_mrec["library_ms"],
+        "prefill_graph_ms": pre_mrec["graph_ms"],
+        "prefill_library_graph_ms": pre_mrec["library_graph_ms"],
+        "prefill_bound_ms": pre_mrec["bound_ms"]}, {
         "name": "mamba2_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan.py:64",

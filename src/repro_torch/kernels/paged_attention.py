@@ -9,25 +9,29 @@
   decode, the speculative draft/verify passes and the fused step's
   non-ragged backend; kernel ``csrc/paged_attention.cu``.
 * ``paged_attention_ragged_quant`` — port of
-  ``paged_attention.py::paged_attention_ragged_quant``: the ragged kernel
+  ``paged_attention.py::paged_attention_ragged_quant``: ragged attention
   over int8 or fp8-e4m3 K/V with f32 row scales (DESIGN.md §14), the fused
   step's attention under quantized KV, and (flattened by
   ``ops.paged_attention_quant_op``) the batched paths'; kernel
-  ``csrc/paged_attention_ragged_quant.cu``.
+  ``csrc/paged_attention_ragged_quant.cu`` with its own body
+  (``csrc/quant_attention.cuh``: split-KV decode tiles merged by a second
+  launch, register-tiled chunk tiles), laid out by ``quant_plan``.
 
-All three are CUDA C++ for sm_90a, built by ``_build``, and share their
-tile body (``csrc/attention_tile.cuh``, templated over the pool's element
-type); the sources note what bounds them on the H100 and how their design
-differs from the TPU grid.
+All three are CUDA C++ for sm_90a, built by ``_build``; the first two
+share their tile body (``csrc/attention_tile.cuh``). The sources note what
+bounds them on the H100 and how their design differs from the TPU grid.
 
 Tensors on the CPU take the plain version (``ref.py``); tensors on a CUDA
 device launch the kernel or raise — there is no fallback. Each wrapper's
-``launches`` counts its kernel's launches, and nothing else, so a run can
-show that its main path went through the kernel.
+``launches`` counts its calls that launch on the card (one for B2's three
+launches), and nothing else, so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -36,8 +40,8 @@ from . import _build, ref
 
 _RAGGED = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                          ctypes.c_void_p]
-_QUANT = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                        ctypes.c_void_p]
+_QUANT = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_float]
+          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # argtypes of every extern "C" launcher, by symbol
 _SIG = {"paged_attention_ragged_f32": _RAGGED,
         "paged_attention_f32": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
@@ -46,6 +50,55 @@ _SIG = {"paged_attention_ragged_f32": _RAGGED,
         "paged_attention_ragged_quant_f8": _QUANT}
 # B2's launcher suffix by value dtype
 _QUANT_SUFFIX = {torch.int8: "i8", torch.float8_e4m3fn: "f8"}
+# B2's tiles (csrc/quant_attention.cuh): a sequence whose rows x G fit
+# max(MIN_DECODE_VECS, G) query vectors is one split-KV decode tile, any
+# other is cut into chunk tiles of CHUNK_VECS vectors. Decode splits are
+# whole multiples of SPLIT_UNIT keys (4 warps x 32), at least
+# MIN_SPLIT_UNITS of them (2 sub-tiles a warp, so each warp's 2-stage ring
+# streams), at most MAX_SPLITS splits over the table
+MIN_DECODE_VECS, CHUNK_VECS = 4, 64
+SPLIT_UNIT, MIN_SPLIT_UNITS, MAX_SPLITS = 128, 4, 16
+GRID_X = 2 ** 31 - 1          # gridDim.x: every B2 grid is one-dimensional
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """One call of B2, from host-known sizes only: keys a split, splits
+    over the table, vectors of a decode tile, rows of a chunk tile, chunk
+    tiles, the blocks of the decode and chunk launches (upper bounds, the
+    KV head fastest; blocks without work leave at once; the merge takes S
+    x Hkv) and the shapes of the split scratch."""
+    split_keys: int
+    n_splits: int
+    decode_vecs: int
+    chunk_rows: int
+    chunk_tiles: int
+    decode_blocks: int
+    chunk_blocks: int
+    part_out: tuple
+    part_lse: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def quant_plan(t: int, s: int, n_keys: int, h: int, hkv: int,
+               d: int) -> QuantPlan:
+    """B2's layout for a step of ``t`` packed rows over ``s`` sequences
+    whose tables reach ``n_keys`` = n_pages x page keys, H query heads on
+    Hkv KV heads of width ``d``. A decode tile holds max(4, G) vectors: a
+    decode row of G heads (at G <= 2 a few rows). Splits are 512 keys, or
+    more for tables past 16 x 512 keys so that there are at most 16; the
+    chunk tiles are at most ceil(T / rows) + S (each sequence's last tile
+    may be partial)."""
+    g = h // hkv
+    vecs = max(MIN_DECODE_VECS, g)
+    split_keys = SPLIT_UNIT * max(MIN_SPLIT_UNITS,
+                                  -(-n_keys // (SPLIT_UNIT * MAX_SPLITS)))
+    n_splits = max(1, -(-n_keys // split_keys))
+    chunk_rows = CHUNK_VECS // g
+    chunk_tiles = -(-t // chunk_rows) + s
+    return QuantPlan(split_keys, n_splits, vecs, chunk_rows, chunk_tiles,
+                     s * n_splits * hkv, chunk_tiles * hkv,
+                     (s, n_splits, hkv, vecs, d), (s, n_splits, hkv, vecs))
 
 
 def _launcher(name: str, suffix: str = "f32"):
@@ -272,6 +325,14 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
     out = torch.zeros_like(q)
     if t == 0 or s == 0:
         return out
+    plan = quant_plan(t, s, n_pages * page, h, hkv, d)
+    if max(plan.decode_blocks, plan.chunk_blocks) > GRID_X:
+        raise ValueError(f"B2's grids ({plan.decode_blocks}, "
+                         f"{plan.chunk_blocks} blocks) are past CUDA's "
+                         f"{GRID_X}")
+    part_o = torch.empty(plan.part_out, dtype=torch.float32, device=q.device)
+    part_lse = torch.empty(plan.part_lse, dtype=torch.float32,
+                           device=q.device)
     fn = _launcher("paged_attention_ragged_quant",
                    _QUANT_SUFFIX[k_pages.dtype])
     with torch.cuda.device(q.device):
@@ -280,9 +341,11 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
                 k_scales.data_ptr(), v_scales.data_ptr(),
                 block_tables.data_ptr(), scale_tables.data_ptr(),
                 context_lens.data_ptr(), q_starts.data_ptr(),
-                q_lens.data_ptr(), pos0.data_ptr(), out.data_ptr(), t, h,
-                hkv, d, page, s, n_pages,
-                0 if window is None else int(window), scale, stream)
+                q_lens.data_ptr(), pos0.data_ptr(), out.data_ptr(),
+                part_o.data_ptr(), part_lse.data_ptr(), t, h, hkv, d, page,
+                s, n_pages, 0 if window is None else int(window), scale,
+                plan.n_splits, plan.split_keys, plan.decode_vecs,
+                plan.chunk_tiles, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_ragged_quant launch failed: "
                            f"cudaError {rc}")

@@ -157,6 +157,88 @@ def paged_attention_ragged_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
                                   pos0, window=window, scale=scale)
 
 
+def merge_partial_attention(outs: torch.Tensor,
+                            lses: torch.Tensor) -> torch.Tensor:
+    """Combine partial attention over disjoint key shards (the
+    flash-decoding merge; the JAX ``models/attention.py::
+    merge_partial_attention``). outs: (P, ..., D) each shard's normalized
+    output; lses: (P, ...) its log-sum-exp. A shard a row sees no key of
+    carries lse = NEG_INF and weighs nothing; a row with no key in any
+    shard merges to 0."""
+    m = lses.max(dim=0).values
+    w = torch.exp(lses - m)
+    num = (outs.float() * w[..., None]).sum(dim=0)
+    return (num / w.sum(dim=0).clamp_min(1e-30)[..., None]).to(outs.dtype)
+
+
+def _attend_range(q, k, v, q_pos, kv_pos, *, window, scale):
+    """(out, lse) of rows q (R, H, D) at positions q_pos over the keys k, v
+    (L, Hkv, D) at kv_pos, causal and windowed; a row with no visible key
+    gives (0, NEG_INF)."""
+    r, h, d = q.shape
+    hkv = k.shape[1]
+    mask = kv_pos[None, :] <= q_pos[:, None]                    # (R, L)
+    if window is not None:
+        mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+    s = torch.einsum("rhgd,lhd->rhgl", q.reshape(r, hkv, h // hkv, d),
+                     k) * scale
+    m = mask[:, None, None]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    mx = s.max(dim=-1, keepdim=True).values
+    p = torch.where(m, torch.exp(s - mx), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    o = torch.einsum("rhgl,lhd->rhgd", p, v) / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, mx[..., 0] + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, NEG_INF))
+    return o.reshape(r, h, d), lse.reshape(r, h)
+
+
+def paged_attention_ragged_quant_split_ref(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, scale_tables,
+        context_lens, q_starts, q_lens, pos0, *, split_keys: int,
+        decode_vecs: int, window: Optional[int] = None,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """B2's algorithm in plain PyTorch, for checking its split bookkeeping
+    on the CPU: a sequence whose rows x G fit ``decode_vecs`` has its
+    visible keys cut at multiples of ``split_keys`` (both from the kernel's
+    ``quant_plan``), each split's (out, lse) computed alone and the splits
+    merged by ``merge_partial_attention``; any other sequence attends to
+    its visible keys in one piece. Same result as
+    ``paged_attention_ragged_quant_ref`` up to fp32 rounding."""
+    t, h, d = q.shape
+    g = h // k_pages.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _dequant_gather(k_pages, k_scales, block_tables, scale_tables)
+    v = _dequant_gather(v_pages, v_scales, block_tables, scale_tables)
+    n_keys = k.shape[1]
+    out = torch.zeros_like(q, dtype=torch.float32)
+    for s in range(block_tables.shape[0]):
+        start, n = int(q_starts[s]), min(int(q_lens[s]), t - int(q_starts[s]))
+        if int(q_lens[s]) <= 0 or n <= 0:
+            continue
+        p0, ctx = int(pos0[s]), int(context_lens[s])
+        lo = 0 if window is None else max(0, p0 - window + 1)
+        hi = min(ctx, p0 + n, n_keys)
+        if hi <= lo:
+            continue
+        if int(q_lens[s]) * g <= decode_vecs:
+            cuts = [(max(lo, i * split_keys), min(hi, (i + 1) * split_keys))
+                    for i in range(lo // split_keys,
+                                   (hi - 1) // split_keys + 1)]
+        else:
+            cuts = [(lo, hi)]
+        q_pos = torch.arange(p0, p0 + n, device=q.device)
+        parts = [_attend_range(q[start:start + n].float(), k[s, a:b],
+                               v[s, a:b], q_pos,
+                               torch.arange(a, b, device=q.device),
+                               window=window, scale=scale)
+                 for a, b in cuts]
+        out[start:start + n] = merge_partial_attention(
+            torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]))
+    return out.to(q.dtype)
+
+
 def _attend_ragged_chunked(q, k, v, context_lens, q_starts, q_lens, pos0,
                            *, window, scale):
     """``_attend_ragged_gathered`` over chunks of stream rows that bound

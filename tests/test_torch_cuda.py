@@ -18,9 +18,16 @@ int8 and fp8-e4m3 pools: both it and its plain version read the same
 dequantized values, so only the fp32 summation order differs. The
 executor's sequential, multi-step and speculative paths give the CPU's
 tokens, fp32 and int8, and their horizons never wait for the device.
+B2's split-KV decode tiles are held at split boundaries (contexts of
+split - 1, split and split + 1 keys (splits of 512), a window starting inside a split,
+splits with no visible key), next to chunk tiles and on both sides of the
+decode/chunk threshold, for pages of 16 and 128, D = 80 and D % 16 != 0
+(the 4-byte copies), with poison and a bitwise repeat.
 The expert GEMM (B4) is held against its plain version at 2e-4·√K (the
-JAX suite's bar) at chip_smoke's decode steps for mixtral-8x7b and
-kimi-k2-1t-a32b and at edge shapes, and repeats bitwise; the capacity MoE
+JAX suite's bar) over both bodies and every row tile and split path (C =
+1, 4, 8, 20, 33, 64, 160, 640, 960 at mixtral-8x7b's and kimi-k2's
+widths), K and N off the slab and the tile, N % 4 != 0 and an unaligned
+x (the 4-byte copies), and repeats bitwise; the capacity MoE
 FFN with top-8 repeats bitwise run to run (its combine uses no atomics);
 the MoE executor on the card gives the CPU's tokens under both
 ``moe_impl``s, B4 launching three times per layer and router chunk.
@@ -398,14 +405,21 @@ def test_quant_kernel_never_reads_outside_visible_keys(cuda, fmt, layout):
     """NaN in every scale slot a row may not read and 0x7F bytes (NaN in
     e4m3fn) in those value slots leave the output bit-identical."""
     *shape, window = layout
-    q, k, v, ks, vs, bt, st, ctx, qs, ql, p0 = _quant_inputs(fmt, shape,
-                                                             cuda)
-    clean = paged_attention_ragged_quant(q, k, v, ks, vs, bt, st, ctx, qs,
-                                         ql, p0, window=window)
+    args = _quant_inputs(fmt, shape, cuda)
+    clean = paged_attention_ragged_quant(*args, window=window)
+    dirty = paged_attention_ragged_quant(*_poisoned_quant(args, window),
+                                         window=window)
+    assert torch.equal(clean, dirty)
+
+
+def _poisoned_quant(args, window):
+    """``args`` with 0x7F bytes (NaN in e4m3fn) in every value slot no row
+    of its sequence may read and NaN in those slots' scales."""
+    q, k, v, ks, vs, bt, st, ctx, qs, ql, p0 = args
     page, n_pages = k.shape[1], bt.shape[1]
     kb, vb = k.view(torch.uint8).clone(), v.view(torch.uint8).clone()
     ks2, vs2 = ks.clone(), vs.clone()
-    kv = torch.arange(n_pages * page, device=cuda)
+    kv = torch.arange(n_pages * page, device=k.device)
     for s in range(bt.shape[0]):
         lo = 0 if window is None else max(0, int(p0[s]) - window + 1)
         bad = (kv < lo) | (kv >= int(ctx[s]))
@@ -415,10 +429,57 @@ def test_quant_kernel_never_reads_outside_visible_keys(cuda, fmt, layout):
         vb[pg, kv[bad] % page] = 0x7F
         ks2[spg, kv[bad] % page] = float("nan")
         vs2[spg, kv[bad] % page] = float("nan")
-    dirty = paged_attention_ragged_quant(
-        q, kb.view(k.dtype), vb.view(v.dtype), ks2, vs2, bt, st, ctx, qs, ql,
-        p0, window=window)
-    assert torch.equal(clean, dirty)
+    return [q, kb.view(k.dtype), vb.view(v.dtype), ks2, vs2, bt, st, ctx, qs,
+            ql, p0]
+
+
+# (q_lens, pos0, H, Hkv, D, page, n_pages, window) over tables of 1024 keys
+# or more (splits of 512 keys, quant_plan); decode rows at pos0 = ctx - 1
+QSPLIT = {
+    "ctx_511_512_513_p16": ([1, 1, 1], [510, 511, 512], 32, 8, 80, 16, 64,
+                            None),
+    "ctx_511_512_513_p128": ([1, 1, 1], [510, 511, 512], 32, 8, 80, 128, 8,
+                             None),
+    "window_in_split_empty_split": ([1, 1, 3], [800, 600, 597], 32, 8, 80,
+                                    128, 8, 100),
+    "decode_next_to_chunks": ([1, 40, 1, 0, 17, 1],
+                              [900, 480, 512, 0, 0, 1020], 32, 8, 80, 128, 8,
+                              None),
+    # G = 4: one row is a decode tile, two rows a chunk tile; G = 1: four
+    # rows and five; G = 8: a decode row of 8 vectors
+    "threshold_1_2_rows": ([1, 2, 1, 3], [511, 510, 600, 0], 32, 8, 80, 16,
+                           64, None),
+    "g1_threshold_4_5_rows": ([4, 5, 4, 1], [508, 509, 600, 0], 4, 4, 80, 16,
+                              64, None),
+    "g8_decode_rows": ([1, 1, 2, 20], [511, 600, 512, 100], 16, 2, 64, 128,
+                       8, 64),
+    "d20_4byte_copies": ([1, 1, 1, 9], [510, 511, 512, 100], 8, 2, 20, 16,
+                         64, 200),
+    "d36_4byte_copies": ([2, 30, 1], [1023, 60, 767], 4, 1, 36, 16, 64, None),
+    "long_ctx_16_splits": ([1, 1, 64], [7000, 8191, 7900], 32, 8, 80, 128,
+                           64, None),
+}
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("case", sorted(QSPLIT))
+def test_quant_kernel_split_kv_cases(cuda, fmt, case):
+    """Split-KV decode tiles next to chunk tiles: within 1e-4 of the plain
+    version, stream padding rows 0, poison in unreadable slots leaves the
+    output bit-identical, and a second launch is bitwise equal."""
+    *shape, window = QSPLIT[case]
+    args = _quant_inputs(fmt, shape, cuda)
+    got = paged_attention_ragged_quant(*args, window=window)
+    again = paged_attention_ragged_quant(*args, window=window)
+    dirty = paged_attention_ragged_quant(*_poisoned_quant(args, window),
+                                         window=window)
+    torch.cuda.synchronize()
+    want = paged_attention_ragged_quant_ref(*args, window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+    assert torch.all(got[sum(shape[0]):] == 0), "stream padding rows are 0"
+    assert torch.equal(again, got)
+    assert torch.equal(dirty, got)
 
 
 def test_quant_kernel_rejects_what_it_does_not_take(cuda):
@@ -494,15 +555,21 @@ def test_int8_executor_card_matches_cpu(cuda, path):
 
 
 # (E, C, K, N): B4 at chip_smoke's step (h) — mixtral-8x7b decode, C=20,
-# gate/up then down — at serve-16's 16-row decode bucket (C=8, the 8-row
-# tile), and step (k), kimi-k2's 384 experts at C=4 (w holds 5.6e9
-# elements: 64-bit offsets); then edges of the 8-, 32- and 64-row tiles,
-# 128-column tiles and 16-deep K slabs, and N % 4 != 0 (scalar rows)
+# gate/up then down (split K) — at serve-16's 16-row decode bucket (C=8)
+# and C=4 and 1, step (k), kimi-k2's 384 experts at C=4 (w holds 5.6e9
+# elements: 64-bit offsets), and the tile body at the prefill capacities
+# (C=160: 32-row tiles, 640: 128, 960: 64); then edges of every row tile,
+# 128-column tiles and 16- and 32-deep K slabs, and N % 4 != 0 or K % 4
+# != 0 (4-byte copies) in both bodies
 MOE_SHAPES = [(8, 20, 4096, 14336), (8, 20, 14336, 4096),
               (8, 8, 4096, 14336), (8, 8, 14336, 4096),
-              (384, 4, 7168, 2048), (3, 20, 96, 72), (5, 1, 33, 5),
-              (2, 4, 17, 130), (4, 33, 100, 130), (2, 9, 64, 64),
-              (1, 640, 64, 256)]
+              (8, 4, 14336, 4096), (8, 1, 14336, 4096),
+              (384, 4, 7168, 2048), (8, 160, 4096, 14336),
+              (8, 640, 4096, 14336), (8, 960, 14336, 4096),
+              (8, 33, 4096, 1000), (8, 64, 1000, 4096), (3, 20, 96, 72),
+              (5, 1, 33, 5), (2, 4, 17, 130), (4, 33, 100, 130),
+              (2, 9, 64, 64), (1, 640, 64, 256), (3, 960, 100, 130),
+              (2, 160, 33, 132), (2, 12, 40, 260)]
 
 
 @pytest.mark.parametrize("shape", MOE_SHAPES,
@@ -523,6 +590,20 @@ def test_moe_gmm_matches_plain_version(cuda, shape):
     assert torch.equal(again, got)          # one FMA chain per output
     del x, w, got, want, again
     torch.cuda.empty_cache()
+
+
+def test_moe_gmm_takes_an_unaligned_x(cuda):
+    """x 4 bytes off 16-byte alignment: every copy is 4 bytes, in the tile
+    and the stream body alike."""
+    for e, c, k, n in ((2, 40, 64, 256), (2, 8, 256, 128)):
+        g = torch.Generator(device=cuda).manual_seed(1)
+        buf = torch.randn((e * c * k + 1,), generator=g, device=cuda)
+        x = buf[1:].view(e, c, k)
+        w = torch.randn((e, k, n), generator=g, device=cuda)
+        assert x.data_ptr() % 16 == 4
+        got = moe_gmm(x, w)
+        assert float((got - moe_gmm_ref(x, w)).abs().max()) < 2e-4 * k ** 0.5
+        assert torch.equal(moe_gmm(x, w), got)
 
 
 def test_moe_gmm_rejects_what_it_does_not_take(cuda):
