@@ -16,8 +16,11 @@ nothing of the JAX package. Phases, each printing its own lines:
    (a) with a 4096-token window and contexts past it. Max abs error ≤ 1e-4
    (fp32 sums over ≤ 8192 keys; online-softmax rescaling against a one-pass
    softmax). Times by CUDA events (median of 20 after warm-up, kernel,
-   plain and library in turns); bound = max(bytes / 3.35 TB/s, FLOPs / 67
-   TFLOP/s fp32) over what the step's data needs. The library yardstick is
+   plain and library in turns); ``graph_ms`` times the kernel's device
+   work alone (CUDA-graph replay; ``ms`` also counts the wrapper's host
+   time before the first launch), and % of bound is taken against it;
+   bound = max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s fp32) over what the
+   step's data needs. The library yardstick is
    ``scaled_dot_product_attention``: one call over every decode row (keys
    padded, boolean mask) plus one call per prefill chunk. Also checks that
    K/V slots outside a sequence's visible range are never read (NaN there
@@ -27,10 +30,10 @@ nothing of the JAX package. Phases, each printing its own lines:
    sequences at Tq=1, contexts uniform in 128–4096; (e) verify, 16
    sequences at Tq=4 (γ=3), contexts 128–4096; (f) a sequential prefill
    chunk, 1 sequence at Tq=512 from a position ≤ 3584; (g) step (e) with a
-   4096-token window and contexts up to 8192. Same gates, timing and bound
-   as phase 3; table columns past a context point at trash page 0. The
-   library yardstick is one SDPA call over the padded batched view with a
-   boolean mask.
+   4096-token window and contexts up to 8192. Same gates, timing (with
+   ``graph_ms``) and bound as phase 3; table columns past a context point
+   at trash page 0. The library yardstick is one SDPA call over the padded
+   batched view with a boolean mask.
 3c. quantized kernel vs plain — ``paged_attention_ragged_quant`` (B2)
    against ``paged_attention_ragged_quant_ref`` on phase 3's steps (a), (b)
    and (c), pages of 128 and 16, with the pools quantized to int8 and to
@@ -50,7 +53,7 @@ nothing of the JAX package. Phases, each printing its own lines:
    and (r) 64 rows at 2048 with a 300-key window, which starts inside a
    split. Every step also times B1 (``paged_attention_ragged``) on the
    step's fp32 pools in the same turns (``b1_ms``): the same work at 4
-   bytes per element, on the tile body B2 had before. ``graph_ms`` and
+   bytes per element, on the same body's fp32 tiles. ``graph_ms`` and
    ``b1_graph_ms`` time each call's device work alone (CUDA-graph replay):
    a decode step's ~0.1 ms of host time before the first launch is in
    ``ms``, not in them.
@@ -162,8 +165,10 @@ nothing of the JAX package. Phases, each printing its own lines:
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
-4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B2's times at step (a), int8, pages of
-128, with B1's time from the same call (``b1_ms``) and step (b)'s as
+4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B1's times at step (a), pages of 128,
+with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
+step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
+of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
 ``decode_*``; B4's at the gate/up shape of the capacity 5d launched it at
 most, with the gate/up shape of the largest capacity 5d launched as
 ``prefill_*``; ``*graph_ms`` are device times alone, by CUDA-graph
@@ -489,6 +494,8 @@ def check_kernel(st: Step, timer, timed: bool) -> dict:
                              f"with its plain version")
     if timed:
         rec.update(time_in_turns(timer, kern, plain, lib_fn))
+        if q.is_cuda:
+            rec["graph_ms"] = graph_timer(kern)
     return rec
 
 
@@ -651,6 +658,8 @@ def check_bkernel(st: BStep, timer) -> dict:
         raise AssertionError(f"{st.name}/page {st.page}: batched kernel "
                              f"disagrees with its plain version")
     rec.update(time_in_turns(timer, kern, plain, lib_fn))
+    if q.is_cuda:
+        rec["graph_ms"] = graph_timer(kern)
     return rec
 
 
@@ -1787,7 +1796,9 @@ def main() -> int:
     phase_ssm_serve(get("mamba2-1.3b"), "cuda")
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
+    dec_rec = recs[2]             # step (b), pages of 128
     main_brec = brecs[0]          # step (d), pages of 128: decode batches
+    chunk_brec = brecs[4]         # step (f), pages of 128: a prefill chunk
     main_qrec = qrecs[0]          # step (a), int8, pages of 128
     dec_qrec = qrecs[4]           # step (b), int8, pages of 128
     mrecs += served_mrecs
@@ -1803,7 +1814,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in recs),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}, {
+        "library_ms": main_rec["library_ms"],
+        "graph_ms": main_rec["graph_ms"], "decode_ms": dec_rec["ms"],
+        "decode_graph_ms": dec_rec["graph_ms"],
+        "decode_bound_ms": dec_rec["bound_ms"]}, {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:382",
@@ -1811,7 +1825,11 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in brecs),
         "ms": main_brec["ms"], "plain_ms": main_brec["plain_ms"],
         "bound_ms": main_brec["bound_ms"], "bound_by": main_brec["bound_by"],
-        "library_ms": main_brec["library_ms"]}, {
+        "library_ms": main_brec["library_ms"],
+        "graph_ms": main_brec["graph_ms"], "chunk_ms": chunk_brec["ms"],
+        "chunk_graph_ms": chunk_brec["graph_ms"],
+        "chunk_library_ms": chunk_brec["library_ms"],
+        "chunk_bound_ms": chunk_brec["bound_ms"]}, {
         "name": "paged_attention_ragged_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/"
                   "paged_attention_ragged_quant.cu",

@@ -3,29 +3,31 @@
 * ``paged_attention_ragged`` — port of
   ``src/repro/kernels/paged_attention.py::paged_attention_ragged`` (the
   Pallas TPU kernel the fused serving step launches once per layer);
-  kernel ``csrc/paged_attention_ragged.cu``.
+  kernel ``csrc/paged_attention_ragged.cu`` (B1).
 * ``paged_attention`` — port of ``paged_attention.py::paged_attention``,
   the batched (B, Tq) kernel of sequential mode, committed multi-step
   decode, the speculative draft/verify passes and the fused step's
-  non-ragged backend; kernel ``csrc/paged_attention.cu``.
+  non-ragged backend; kernel ``csrc/paged_attention.cu`` (B3).
 * ``paged_attention_ragged_quant`` — port of
   ``paged_attention.py::paged_attention_ragged_quant``: ragged attention
   over int8 or fp8-e4m3 K/V with f32 row scales (DESIGN.md §14), the fused
   step's attention under quantized KV, and (flattened by
   ``ops.paged_attention_quant_op``) the batched paths'; kernel
-  ``csrc/paged_attention_ragged_quant.cu`` with its own body
-  (``csrc/quant_attention.cuh``: split-KV decode tiles merged by a second
-  launch, register-tiled chunk tiles), laid out by ``quant_plan``.
+  ``csrc/paged_attention_ragged_quant.cu`` (B2).
 
-All three are CUDA C++ for sm_90a, built by ``_build``; the first two
-share their tile body (``csrc/attention_tile.cuh``). The sources note what
-bounds them on the H100 and how their design differs from the TPU grid.
+All three are CUDA C++ for sm_90a, built by ``_build``, on one body
+(``csrc/attention_body.cuh``): split-KV decode tiles merged by a second
+launch and register-tiled chunk tiles, over fp32 or 1-byte pools, in the
+ragged (B1, B2) or batched (B3) layout. ``quant_plan`` lays out a ragged
+call, ``batched_plan`` a batched one, ``body_smem`` states the shared
+memory of the body's kernels. The sources note what bounds them on the
+H100 and how their design differs from the TPU grid.
 
 Tensors on the CPU take the plain version (``ref.py``); tensors on a CUDA
 device launch the kernel or raise — there is no fallback. Each wrapper's
-``launches`` counts its calls that launch on the card (one for B2's three
-launches), and nothing else, so a run can show that its main path went
-through the kernel.
+``launches`` counts its calls that launch on the card (one for the one to
+three launches of a call), and nothing else, so a run can show that its
+main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -37,37 +39,78 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+from .moe_gmm import H100_SMS, SMEM_PER_SM, _sms
 
-_RAGGED = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                         ctypes.c_void_p]
-_QUANT = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_float]
-          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_TAIL = [ctypes.c_int] * 8 + [ctypes.c_float]   # T|B ... window, scale
+_RAGGED = [ctypes.c_void_p] * 11 + _TAIL + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
+_QUANT = [ctypes.c_void_p] * 14 + _TAIL + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 # argtypes of every extern "C" launcher, by symbol
 _SIG = {"paged_attention_ragged_f32": _RAGGED,
-        "paged_attention_f32": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                                + [ctypes.c_float, ctypes.c_void_p]),
+        "paged_attention_f32": ([ctypes.c_void_p] * 9 + _TAIL
+                                + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
         "paged_attention_ragged_quant_i8": _QUANT,
         "paged_attention_ragged_quant_f8": _QUANT}
 # B2's launcher suffix by value dtype
 _QUANT_SUFFIX = {torch.int8: "i8", torch.float8_e4m3fn: "f8"}
-# B2's tiles (csrc/quant_attention.cuh): a sequence whose rows x G fit
-# max(MIN_DECODE_VECS, G) query vectors is one split-KV decode tile, any
-# other is cut into chunk tiles of CHUNK_VECS vectors. Decode splits are
-# whole multiples of SPLIT_UNIT keys (4 warps x 32), at least
-# MIN_SPLIT_UNITS of them (2 sub-tiles a warp, so each warp's 2-stage ring
-# streams), at most MAX_SPLITS splits over the table
+# The body's tiles (csrc/attention_body.cuh). Ragged: a sequence whose
+# rows x G fit max(MIN_DECODE_VECS, G) query vectors is one split-KV decode
+# tile, any other is cut into chunk tiles of CHUNK_VECS vectors. Batched:
+# Tq x G <= MAX_DECODE_VECS makes decode tiles of that many vectors rounded
+# up to DECODE_VECS, more makes chunk tiles. Splits are whole multiples of
+# SPLIT_UNIT keys, at least MIN_SPLIT_UNITS of them (each warp's 2-stage
+# ring streams), at most MAX_SPLITS over the table
 MIN_DECODE_VECS, CHUNK_VECS = 4, 64
+DECODE_VECS = (4, 8, 16)
+MAX_DECODE_VECS = DECODE_VECS[-1]
 SPLIT_UNIT, MIN_SPLIT_UNITS, MAX_SPLITS = 128, 4, 16
-GRID_X = 2 ** 31 - 1          # gridDim.x: every B2 grid is one-dimensional
+GRID_X = 2 ** 31 - 1          # gridDim.x: every grid is one-dimensional
+# The body's warps a block, the shared memory CUDA reserves a block, the
+# blocks a chunk launch keeps on an SM (its launch bounds; fewer where
+# shared memory says so), and the waves of the card that batched chunk
+# tiles fill before their keys are split
+WARPS = 4
+SMEM_PER_BLOCK = 1024
+CHUNK_BLOCKS_PER_SM = 3
+CHUNK_WAVES = 2
+
+
+def body_smem(d: int, elem: int, ch: int, vecs: int) -> tuple[int, int]:
+    """Dynamic shared memory (bytes) of the body's decode_split_kernel for
+    ``vecs``-vector tiles and of its chunk_tile_kernel, over pools of
+    ``elem``-byte values (4: fp32; 1: int8 or fp8-e4m3) copied ``ch`` bytes
+    at a time: ``decode_smem`` and ``chunk_smem`` of
+    csrc/attention_body.cuh, which refuses a launch whose plan states
+    other sizes."""
+    quant = elem == 1
+    sub, keys = (32, 64) if quant else (16, 32)   # kSubKeys, kChunkKeys
+    rs = ((d * elem // ch) | 1) * ch               # row_stride
+    st4 = ((d // 4) | 1) * 16                      # a widened row
+    stage = lambda nk: nk * (2 * rs + (8 if quant else 0))
+    dec = (vecs * d * 4 + WARPS * vecs * sub * 4 + 2 * WARPS * vecs * 4
+           + WARPS * 2 * stage(sub))
+    chunk = CHUNK_VECS * d * 4 + (2 * keys * st4 + stage(keys) if quant
+                                  else 2 * 2 * keys * st4)
+    return dec, chunk
+
+
+def _splits(n_keys: int) -> tuple[int, int]:
+    """(keys a split, splits) of a table of ``n_keys`` keys: 512 keys, or
+    more for tables past 16 x 512 keys so that there are at most 16."""
+    split_keys = SPLIT_UNIT * max(MIN_SPLIT_UNITS,
+                                  -(-n_keys // (SPLIT_UNIT * MAX_SPLITS)))
+    return split_keys, max(1, -(-n_keys // split_keys))
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPlan:
-    """One call of B2, from host-known sizes only: keys a split, splits
-    over the table, vectors of a decode tile, rows of a chunk tile, chunk
-    tiles, the blocks of the decode and chunk launches (upper bounds, the
-    KV head fastest; blocks without work leave at once; the merge takes S
-    x Hkv) and the shapes of the split scratch."""
+    """One call of the ragged layout (B2, and B1 on fp32 pools), from
+    host-known sizes only: keys a split, splits over the table, vectors of
+    a decode tile, rows of a chunk tile, chunk tiles, the blocks of the
+    decode and chunk launches (upper bounds, the KV head fastest; blocks
+    without work leave at once; the merge takes S x Hkv) and the shapes of
+    the split scratch."""
     split_keys: int
     n_splits: int
     decode_vecs: int
@@ -82,23 +125,100 @@ class QuantPlan:
 @functools.lru_cache(maxsize=256)
 def quant_plan(t: int, s: int, n_keys: int, h: int, hkv: int,
                d: int) -> QuantPlan:
-    """B2's layout for a step of ``t`` packed rows over ``s`` sequences
-    whose tables reach ``n_keys`` = n_pages x page keys, H query heads on
-    Hkv KV heads of width ``d``. A decode tile holds max(4, G) vectors: a
-    decode row of G heads (at G <= 2 a few rows). Splits are 512 keys, or
-    more for tables past 16 x 512 keys so that there are at most 16; the
-    chunk tiles are at most ceil(T / rows) + S (each sequence's last tile
-    may be partial)."""
+    """The ragged layout of a step of ``t`` packed rows over ``s``
+    sequences whose tables reach ``n_keys`` = n_pages x page keys, H query
+    heads on Hkv KV heads of width ``d`` (B1's and B2's). A decode tile
+    holds max(4, G) vectors: a decode row of G heads (at G <= 2 a few
+    rows). Splits follow ``_splits``; the chunk tiles are at most
+    ceil(T / rows) + S (each sequence's last tile may be partial)."""
     g = h // hkv
     vecs = max(MIN_DECODE_VECS, g)
-    split_keys = SPLIT_UNIT * max(MIN_SPLIT_UNITS,
-                                  -(-n_keys // (SPLIT_UNIT * MAX_SPLITS)))
-    n_splits = max(1, -(-n_keys // split_keys))
+    split_keys, n_splits = _splits(n_keys)
     chunk_rows = CHUNK_VECS // g
     chunk_tiles = -(-t // chunk_rows) + s
     return QuantPlan(split_keys, n_splits, vecs, chunk_rows, chunk_tiles,
                      s * n_splits * hkv, chunk_tiles * hkv,
                      (s, n_splits, hkv, vecs, d), (s, n_splits, hkv, vecs))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedPlan:
+    """One call of B3, from host-known sizes only: vectors a tile (4, 8 or
+    16: decode tiles of one sequence's Tq rows; 64: chunk tiles of ``rows``
+    rows), tiles, keys a split and splits over the table (1: the keys are
+    not split), the blocks of the split or chunk launch and of the merge
+    (0: no merge), the shapes of the split scratch (None without a merge)
+    and the launch's dynamic shared memory."""
+    vecs: int
+    rows: int
+    tiles: int
+    split_keys: int
+    n_splits: int
+    blocks: int
+    merge_blocks: int
+    part_out: Optional[tuple]
+    part_lse: Optional[tuple]
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def batched_plan(b: int, tq: int, n_keys: int, h: int, hkv: int, d: int,
+                 sms: int = H100_SMS) -> BatchedPlan:
+    """B3's layout for q (B, Tq, H, D) over tables of ``n_keys`` keys on a
+    card of ``sms`` SMs. Tq x G <= 16: decode tiles of Tq x G vectors
+    rounded up to 4, 8 or 16, their keys split as ``_splits`` says (the
+    same splits as B1's for a table of the same width), then merged. Else
+    chunk tiles of 64 vectors, a sequence's Tq rows cut into
+    ceil(Tq / (64 / G)) of them; when their B x tiles x Hkv blocks fill
+    less than CHUNK_WAVES waves of the card (CHUNK_BLOCKS_PER_SM blocks an
+    SM, fewer where shared memory says so), their keys are split into as
+    many splits of whole SPLIT_UNITs, at least 512 keys each and at most
+    MAX_SPLITS, as make up the waves, and merged."""
+    g = h // hkv
+    if tq * g <= MAX_DECODE_VECS:
+        vecs = next(v for v in DECODE_VECS if v >= tq * g)
+        split_keys, n_splits = _splits(n_keys)
+        smem = body_smem(d, 4, 16, vecs)[0]
+        return BatchedPlan(vecs, tq, b, split_keys, n_splits,
+                           b * n_splits * hkv, b * hkv,
+                           (b, n_splits, hkv, vecs, d),
+                           (b, n_splits, hkv, vecs), smem)
+    rows = CHUNK_VECS // g
+    tiles = b * -(-tq // rows)
+    smem = body_smem(d, 4, 16, MIN_DECODE_VECS)[1]
+    per_sm = min(CHUNK_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_PER_BLOCK))
+    want = -(-CHUNK_WAVES * sms * per_sm // (tiles * hkv))
+    n_splits = max(1, min(want, MAX_SPLITS,
+                          n_keys // (SPLIT_UNIT * MIN_SPLIT_UNITS)))
+    split_keys = SPLIT_UNIT * -(-n_keys // (SPLIT_UNIT * n_splits))
+    if n_splits > 1:
+        n_splits = -(-n_keys // split_keys)
+    merged = n_splits > 1
+    return BatchedPlan(CHUNK_VECS, rows, tiles, split_keys, n_splits,
+                       tiles * n_splits * hkv, tiles * hkv if merged else 0,
+                       (tiles, n_splits, hkv, CHUNK_VECS, d) if merged
+                       else None,
+                       (tiles, n_splits, hkv, CHUNK_VECS) if merged
+                       else None, smem)
+
+
+def _ragged_plan(t, s, n_keys, h, hkv, d) -> QuantPlan:
+    """``quant_plan``, refused when its grids are past CUDA's."""
+    plan = quant_plan(t, s, n_keys, h, hkv, d)
+    if max(plan.decode_blocks, plan.chunk_blocks) > GRID_X:
+        raise ValueError(f"the ragged grids ({plan.decode_blocks}, "
+                         f"{plan.chunk_blocks} blocks) are past CUDA's "
+                         f"{GRID_X}")
+    return plan
+
+
+def _scratch(q, part_out, part_lse):
+    """The split scratch of a plan (f32, allocated per call), or two
+    empty tensors when it has none."""
+    if part_out is None:
+        part_out = part_lse = (0,)
+    return (torch.empty(part_out, dtype=torch.float32, device=q.device),
+            torch.empty(part_lse, dtype=torch.float32, device=q.device))
 
 
 def _launcher(name: str, suffix: str = "f32"):
@@ -222,14 +342,19 @@ def paged_attention_ragged(q, k_pages, v_pages, block_tables, context_lens,
     out = torch.zeros_like(q)
     if t == 0 or s == 0:
         return out
+    plan = _ragged_plan(t, s, n_pages * page, h, hkv, d)
+    part_o, part_lse = _scratch(q, plan.part_out, plan.part_lse)
+    dec_smem, chunk_smem = body_smem(d, 4, 16, plan.decode_vecs)
     fn = _launcher("paged_attention_ragged")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), context_lens.data_ptr(),
                 q_starts.data_ptr(), q_lens.data_ptr(), pos0.data_ptr(),
-                out.data_ptr(), t, h, hkv, d, page, s, n_pages,
-                0 if window is None else int(window), scale, stream)
+                out.data_ptr(), part_o.data_ptr(), part_lse.data_ptr(), t, h,
+                hkv, d, page, s, n_pages, 0 if window is None else int(window),
+                scale, plan.n_splits, plan.split_keys, plan.decode_vecs,
+                plan.chunk_tiles, dec_smem, chunk_smem, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_ragged launch failed: "
                            f"cudaError {rc}")
@@ -269,16 +394,25 @@ def paged_attention(q, k_pages, v_pages, block_table, context_lens, q_starts,
     b, tq, h, _ = q.shape
     _, page, hkv, _ = k_pages.shape
     n_pages = block_table.shape[1]
-    out = torch.empty_like(q)        # the kernel writes every row
+    # not zeroed: the kernel writes every row (0 where no key is visible)
+    out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = batched_plan(b, tq, n_pages * page, h, hkv, d,
+                        _sms(q.device.index))
+    if plan.blocks > GRID_X:
+        raise ValueError(f"B3's grid ({plan.blocks} blocks) is past CUDA's "
+                         f"{GRID_X}")
+    part_o, part_lse = _scratch(q, plan.part_out, plan.part_lse)
     fn = _launcher("paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_table.data_ptr(), context_lens.data_ptr(),
-                q_starts.data_ptr(), out.data_ptr(), b, tq, h, hkv, d, page,
-                n_pages, 0 if window is None else int(window), scale, stream)
+                q_starts.data_ptr(), out.data_ptr(), part_o.data_ptr(),
+                part_lse.data_ptr(), b, tq, h, hkv, d, page, n_pages,
+                0 if window is None else int(window), scale, plan.vecs,
+                plan.n_splits, plan.split_keys, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")
     paged_attention.launches += 1
@@ -325,14 +459,12 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
     out = torch.zeros_like(q)
     if t == 0 or s == 0:
         return out
-    plan = quant_plan(t, s, n_pages * page, h, hkv, d)
-    if max(plan.decode_blocks, plan.chunk_blocks) > GRID_X:
-        raise ValueError(f"B2's grids ({plan.decode_blocks}, "
-                         f"{plan.chunk_blocks} blocks) are past CUDA's "
-                         f"{GRID_X}")
-    part_o = torch.empty(plan.part_out, dtype=torch.float32, device=q.device)
-    part_lse = torch.empty(plan.part_lse, dtype=torch.float32,
-                           device=q.device)
+    plan = _ragged_plan(t, s, n_pages * page, h, hkv, d)
+    part_o, part_lse = _scratch(q, plan.part_out, plan.part_lse)
+    # the body copies 16 bytes at a time where rows and pools allow
+    ch = 16 if d % 16 == 0 and not (k_pages.data_ptr() % 16
+                                    or v_pages.data_ptr() % 16) else 4
+    dec_smem, chunk_smem = body_smem(d, 1, ch, plan.decode_vecs)
     fn = _launcher("paged_attention_ragged_quant",
                    _QUANT_SUFFIX[k_pages.dtype])
     with torch.cuda.device(q.device):
@@ -345,7 +477,7 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
                 part_o.data_ptr(), part_lse.data_ptr(), t, h, hkv, d, page,
                 s, n_pages, 0 if window is None else int(window), scale,
                 plan.n_splits, plan.split_keys, plan.decode_vecs,
-                plan.chunk_tiles, stream)
+                plan.chunk_tiles, dec_smem, chunk_smem, stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_ragged_quant launch failed: "
                            f"cudaError {rc}")

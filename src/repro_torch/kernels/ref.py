@@ -193,49 +193,102 @@ def _attend_range(q, k, v, q_pos, kv_pos, *, window, scale):
     return o.reshape(r, h, d), lse.reshape(r, h)
 
 
+def _attend_cuts(q, k, v, p0, ctx, *, split_keys, window, scale):
+    """Rows q (R, H, D) at positions p0.. over one sequence's gathered keys
+    k, v (L, Hkv, D) below ctx, the kernels' split arithmetic: the keys
+    any row can see cut at multiples of ``split_keys`` (None: one piece),
+    each piece's (out, lse) computed alone and the pieces merged by
+    ``merge_partial_attention`` in order. A row with no visible key is 0."""
+    n = q.shape[0]
+    lo = 0 if window is None else max(0, p0 - window + 1)
+    hi = min(ctx, p0 + n, k.shape[0])
+    if hi <= lo:
+        return torch.zeros_like(q, dtype=torch.float32)
+    cuts = [(lo, hi)] if split_keys is None else [
+        (max(lo, i * split_keys), min(hi, (i + 1) * split_keys))
+        for i in range(lo // split_keys, (hi - 1) // split_keys + 1)]
+    q_pos = torch.arange(p0, p0 + n, device=q.device)
+    parts = [_attend_range(q.float(), k[a:b], v[a:b], q_pos,
+                           torch.arange(a, b, device=q.device),
+                           window=window, scale=scale) for a, b in cuts]
+    return merge_partial_attention(torch.stack([o for o, _ in parts]),
+                                   torch.stack([lse for _, lse in parts]))
+
+
+def _ragged_split(q, k, v, context_lens, q_starts, q_lens, pos0, *,
+                  split_keys, decode_vecs, window, scale):
+    """The ragged layout's split arithmetic over gathered K/V (S, L, Hkv,
+    D): a sequence whose rows x G fit ``decode_vecs`` is cut at multiples
+    of ``split_keys``, any other attends to its visible keys in one piece;
+    rows no sequence owns are 0."""
+    t, h, d = q.shape
+    g = h // k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.zeros_like(q, dtype=torch.float32)
+    for s in range(len(q_lens)):
+        start, n = int(q_starts[s]), min(int(q_lens[s]), t - int(q_starts[s]))
+        if int(q_lens[s]) <= 0 or n <= 0:
+            continue
+        split = split_keys if int(q_lens[s]) * g <= decode_vecs else None
+        out[start:start + n] = _attend_cuts(
+            q[start:start + n], k[s], v[s], int(pos0[s]),
+            int(context_lens[s]), split_keys=split, window=window,
+            scale=scale)
+    return out.to(q.dtype)
+
+
+def paged_attention_ragged_split_ref(
+        q, k_pages, v_pages, block_tables, context_lens, q_starts, q_lens,
+        pos0, *, split_keys: int, decode_vecs: int,
+        window: Optional[int] = None,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """B1's algorithm in plain PyTorch, for checking its split bookkeeping
+    on the CPU: ``_ragged_split`` over fp32 pools, ``split_keys`` and
+    ``decode_vecs`` from the kernel's ``quant_plan``. Same result as
+    ``paged_attention_ragged_ref`` up to fp32 rounding."""
+    return _ragged_split(q, paged_gather(k_pages, block_tables),
+                         paged_gather(v_pages, block_tables), context_lens,
+                         q_starts, q_lens, pos0, split_keys=split_keys,
+                         decode_vecs=decode_vecs, window=window, scale=scale)
+
+
 def paged_attention_ragged_quant_split_ref(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, scale_tables,
         context_lens, q_starts, q_lens, pos0, *, split_keys: int,
         decode_vecs: int, window: Optional[int] = None,
         scale: Optional[float] = None) -> torch.Tensor:
-    """B2's algorithm in plain PyTorch, for checking its split bookkeeping
-    on the CPU: a sequence whose rows x G fit ``decode_vecs`` has its
-    visible keys cut at multiples of ``split_keys`` (both from the kernel's
-    ``quant_plan``), each split's (out, lse) computed alone and the splits
-    merged by ``merge_partial_attention``; any other sequence attends to
-    its visible keys in one piece. Same result as
-    ``paged_attention_ragged_quant_ref`` up to fp32 rounding."""
-    t, h, d = q.shape
-    g = h // k_pages.shape[2]
+    """B2's algorithm in plain PyTorch: ``_ragged_split`` over the
+    dequantized pools. Same result as ``paged_attention_ragged_quant_ref``
+    up to fp32 rounding."""
+    return _ragged_split(
+        q, _dequant_gather(k_pages, k_scales, block_tables, scale_tables),
+        _dequant_gather(v_pages, v_scales, block_tables, scale_tables),
+        context_lens, q_starts, q_lens, pos0, split_keys=split_keys,
+        decode_vecs=decode_vecs, window=window, scale=scale)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_table, context_lens,
+                              q_starts, *, rows: int,
+                              split_keys: Optional[int],
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """B3's algorithm in plain PyTorch: each sequence's Tq rows cut into
+    tiles of ``rows`` rows (the plan's: all Tq rows for decode tiles, 64 /
+    G for chunk tiles), a tile's visible keys cut at multiples of
+    ``split_keys`` (None: one piece) and merged. Every row is written, 0
+    where no key is visible. Same result as ``paged_attention_ref`` up to
+    fp32 rounding."""
+    b, tq, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
-    k = _dequant_gather(k_pages, k_scales, block_tables, scale_tables)
-    v = _dequant_gather(v_pages, v_scales, block_tables, scale_tables)
-    n_keys = k.shape[1]
-    out = torch.zeros_like(q, dtype=torch.float32)
-    for s in range(block_tables.shape[0]):
-        start, n = int(q_starts[s]), min(int(q_lens[s]), t - int(q_starts[s]))
-        if int(q_lens[s]) <= 0 or n <= 0:
-            continue
-        p0, ctx = int(pos0[s]), int(context_lens[s])
-        lo = 0 if window is None else max(0, p0 - window + 1)
-        hi = min(ctx, p0 + n, n_keys)
-        if hi <= lo:
-            continue
-        if int(q_lens[s]) * g <= decode_vecs:
-            cuts = [(max(lo, i * split_keys), min(hi, (i + 1) * split_keys))
-                    for i in range(lo // split_keys,
-                                   (hi - 1) // split_keys + 1)]
-        else:
-            cuts = [(lo, hi)]
-        q_pos = torch.arange(p0, p0 + n, device=q.device)
-        parts = [_attend_range(q[start:start + n].float(), k[s, a:b],
-                               v[s, a:b], q_pos,
-                               torch.arange(a, b, device=q.device),
-                               window=window, scale=scale)
-                 for a, b in cuts]
-        out[start:start + n] = merge_partial_attention(
-            torch.stack([o for o, _ in parts]),
-            torch.stack([lse for _, lse in parts]))
+    k = paged_gather(k_pages, block_table)
+    v = paged_gather(v_pages, block_table)
+    out = torch.empty_like(q, dtype=torch.float32)
+    for i in range(b):
+        for r0 in range(0, tq, rows):
+            out[i, r0:r0 + rows] = _attend_cuts(
+                q[i, r0:r0 + rows], k[i], v[i], int(q_starts[i]) + r0,
+                int(context_lens[i]), split_keys=split_keys, window=window,
+                scale=scale)
     return out.to(q.dtype)
 
 

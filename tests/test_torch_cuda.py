@@ -18,11 +18,15 @@ int8 and fp8-e4m3 pools: both it and its plain version read the same
 dequantized values, so only the fp32 summation order differs. The
 executor's sequential, multi-step and speculative paths give the CPU's
 tokens, fp32 and int8, and their horizons never wait for the device.
-B2's split-KV decode tiles are held at split boundaries (contexts of
-split - 1, split and split + 1 keys (splits of 512), a window starting inside a split,
-splits with no visible key), next to chunk tiles and on both sides of the
-decode/chunk threshold, for pages of 16 and 128, D = 80 and D % 16 != 0
-(the 4-byte copies), with poison and a bitwise repeat.
+The attention body's split-KV decode tiles are held at split boundaries
+(contexts of split - 1, split and split + 1 keys (splits of 512), a
+window starting inside a split, splits with no visible key), next to
+chunk tiles and on both sides of the decode/chunk threshold, for pages of
+16 and 128, with poison and a bitwise repeat: B2 in int8 and fp8 (D = 80,
+128 and D % 16 != 0, the 4-byte copies), B1 in fp32 on the same cases, and B3
+at Tq x G on both sides of 16, with chunk tiles whose keys split, and
+with rows that see no key written as exact zeros into an output that
+starts as NaN.
 The expert GEMM (B4) is held against its plain version at 2e-4·√K (the
 JAX suite's bar) over both bodies and every row tile and split path (C =
 1, 4, 8, 20, 33, 64, 160, 640, 960 at mixtral-8x7b's and kimi-k2's
@@ -458,6 +462,9 @@ QSPLIT = {
     "d36_4byte_copies": ([2, 30, 1], [1023, 60, 767], 4, 1, 36, 16, 64, None),
     "long_ctx_16_splits": ([1, 1, 64], [7000, 8191, 7900], 32, 8, 80, 128,
                            64, None),
+    # D = 128: the chunk tiles' fourth float4 column of O (fp32 takes three
+    # up to D = 96)
+    "d128_chunks": ([1, 40, 1], [511, 60, 767], 8, 2, 128, 16, 64, None),
 }
 
 
@@ -478,6 +485,136 @@ def test_quant_kernel_split_kv_cases(cuda, fmt, case):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= ATOL
     assert torch.all(got[sum(shape[0]):] == 0), "stream padding rows are 0"
+    assert torch.equal(again, got)
+    assert torch.equal(dirty, got)
+
+
+def _poisoned_f32(k, v, bt, ctx, starts, window):
+    """Copies of fp32 pools with NaN in every slot no row of its sequence
+    may read: before the window's first key (from ``starts``, the first
+    row's position) and at or past the context."""
+    page, n_pages = k.shape[1], bt.shape[1]
+    k2, v2 = k.clone(), v.clone()
+    kv = torch.arange(n_pages * page, device=k.device)
+    for s in range(bt.shape[0]):
+        lo = 0 if window is None else max(0, int(starts[s]) - window + 1)
+        bad = (kv < lo) | (kv >= int(ctx[s]))
+        pg = bt[s].long()[kv[bad] // page]
+        k2[pg, kv[bad] % page] = float("nan")
+        v2[pg, kv[bad] % page] = float("nan")
+    return k2, v2
+
+
+@pytest.mark.parametrize("case", sorted(QSPLIT))
+def test_kernel_split_kv_cases(cuda, case):
+    """B1 (fp32) on B2's split cases: split-KV decode tiles at split
+    boundaries, windows starting inside a split, splits with no visible
+    key, next to chunk tiles and on both sides of the decode/chunk
+    threshold. Within 1e-4 of the plain version, stream padding rows 0,
+    NaN in unreadable slots leaves the output bit-identical, and a second
+    launch is bitwise equal."""
+    *shape, window = QSPLIT[case]
+    q, k, v, bt, ctx, qs, ql, p0 = _inputs(*shape, cuda)
+    before = paged_attention_ragged.launches
+    got = paged_attention_ragged(q, k, v, bt, ctx, qs, ql, p0, window=window)
+    again = paged_attention_ragged(q, k, v, bt, ctx, qs, ql, p0,
+                                   window=window)
+    k2, v2 = _poisoned_f32(k, v, bt, ctx, p0, window)
+    dirty = paged_attention_ragged(q, k2, v2, bt, ctx, qs, ql, p0,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_ragged.launches == before + 3
+    want = paged_attention_ragged_ref(q, k, v, bt, ctx, qs, ql, p0,
+                                      window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+    assert torch.all(got[sum(shape[0]):] == 0), "stream padding rows are 0"
+    assert torch.equal(again, got)
+    assert torch.equal(dirty, got)
+
+
+# (B, Tq, H, Hkv, D, page, n_pages, window, contexts, first positions):
+# B3 over tables of 1024 keys or more (splits of 512: batched_plan); rows
+# sit at positions first.. (None: ctx - Tq)
+BSPLIT = {
+    "decode_ctx_511_512_513_p16": (3, 1, 32, 8, 80, 16, 64, None,
+                                   [511, 512, 513], None),
+    "decode_ctx_511_512_513_p128": (3, 1, 32, 8, 80, 128, 8, None,
+                                    [511, 512, 513], None),
+    "verify_ctx_511_512_513_p16": (4, 4, 32, 8, 80, 16, 64, None,
+                                   [511, 512, 513, 516], None),
+    "window_in_split": (3, 1, 32, 8, 80, 128, 8, 100, [800, 600, 1000],
+                        None),
+    "verify_window_empty_first_split": (2, 4, 32, 8, 80, 16, 64, 80,
+                                        [900, 1024], None),
+    # Tq x G on both sides of 16: decode tiles of 16, chunk tiles of 20
+    "g4_tq4_16_vectors": (3, 4, 32, 8, 80, 16, 64, None, [7, 600, 1000],
+                          None),
+    "g4_tq5_20_vectors": (3, 5, 32, 8, 80, 16, 64, None, [7, 600, 1000],
+                          None),
+    "g1_tq16_16_vectors": (2, 16, 4, 4, 32, 16, 64, 64, [20, 700], None),
+    "g1_tq17_17_vectors": (2, 17, 4, 4, 32, 16, 64, 64, [20, 700], None),
+    "g8_tq2_16_vectors": (2, 2, 16, 2, 64, 128, 8, None, [513, 1000], None),
+    # chunk tiles whose keys split (a short grid), a window inside a split
+    "chunk_split_keys": (1, 100, 32, 8, 80, 16, 64, None, [1000], None),
+    "chunk_split_window": (2, 70, 32, 8, 80, 128, 16, 300, [1500, 2048],
+                           None),
+    "d128_chunk_split_keys": (1, 40, 8, 2, 128, 16, 64, None, [900], None),
+    # rows with no visible key: an empty context, and rows past their
+    # context beyond the window
+    "no_visible_key_decode": (3, 1, 32, 8, 80, 16, 64, 4, [0, 600, 100],
+                              [0, 599, 200]),
+    "no_visible_key_chunk": (3, 24, 32, 8, 80, 16, 64, 4, [0, 600, 100],
+                             [0, 576, 200]),
+}
+
+
+def _batched_at(b, tq, h, hkv, d, page, n_pages, ctx, first, device,
+                seed=0):
+    """B3's inputs at the given contexts and first positions."""
+    rng = np.random.default_rng(seed)
+    starts = [max(c - tq, 0) for c in ctx] if first is None else first
+    arrs = {"q": rng.standard_normal((b, tq, h, d)),
+            "k": rng.standard_normal((b * n_pages + 1, page, hkv, d)),
+            "v": rng.standard_normal((b * n_pages + 1, page, hkv, d)),
+            "bt": 1 + rng.permutation(b * n_pages).reshape(b, n_pages),
+            "ctx": ctx, "qs": starts}
+    return [torch.as_tensor(np.asarray(arrs[k]), device=device,
+                            dtype=torch.float32 if k in ("q", "k", "v")
+                            else torch.int32)
+            for k in ("q", "k", "v", "bt", "ctx", "qs")]
+
+
+@pytest.mark.parametrize("case", sorted(BSPLIT))
+def test_batched_kernel_split_cases(cuda, case, monkeypatch):
+    """B3 at split boundaries, windows inside a split, Tq x G on both sides
+    of 16 and chunk tiles with split keys, into an output that starts as
+    NaN (the wrapper does not zero it): within 1e-4 of the plain version,
+    every row with no visible key exactly 0, NaN in unreadable slots
+    leaves the output bit-identical, and a second launch is bitwise
+    equal."""
+    b, tq, h, hkv, d, page, n_pages, window, ctx, first = BSPLIT[case]
+    q, k, v, bt, cl, qs = _batched_at(b, tq, h, hkv, d, page, n_pages, ctx,
+                                      first, cuda)
+    nan_like = lambda x, **kw: torch.full_like(x, float("nan"), **kw)
+    monkeypatch.setattr(torch, "empty_like", nan_like)
+    before = paged_attention.launches
+    got = paged_attention(q, k, v, bt, cl, qs, window=window)
+    again = paged_attention(q, k, v, bt, cl, qs, window=window)
+    dirty = paged_attention(q, *_poisoned_f32(k, v, bt, cl, qs, window), bt,
+                            cl, qs, window=window)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert paged_attention.launches == before + 3
+    want = paged_attention_ref(q, k, v, bt, cl, qs, window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+    for i in range(b):
+        for t in range(tq):
+            p = int(qs[i]) + t
+            lo = 0 if window is None else max(0, p - window + 1)
+            if min(ctx[i], p + 1) <= lo:
+                assert torch.all(got[i, t] == 0), (i, t)
     assert torch.equal(again, got)
     assert torch.equal(dirty, got)
 

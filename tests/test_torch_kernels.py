@@ -190,7 +190,7 @@ def test_ctypes_signature_matches_the_c_launcher(name):
 
 
 def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
-    """The attention kernels include csrc/attention_tile.cuh, and the
+    """The attention kernels include csrc/attention_body.cuh, and the
     digest covers every header: editing it renames every library (B4's
     and B5's too), so none loads a stale build."""
     csrc = tmp_path / "csrc"
@@ -199,7 +199,7 @@ def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {n: _build.library_path(n) for n in _build.SOURCES}
-    hdr = csrc / "attention_tile.cuh"
+    hdr = csrc / "attention_body.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert set(before) == {"paged_attention", "paged_attention_ragged",

@@ -74,9 +74,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 from repro_torch.models.weights import init_params  # noqa: E402
 
-CLASSES = (("attention", ("ragged_paged_attention",
-                          "batched_paged_attention", "decode_split_kernel",
-                          "merge_splits_kernel", "chunk_tile_kernel")),
+CLASSES = (("attention", ("decode_split_kernel", "merge_splits_kernel",
+                          "chunk_tile_kernel")),
            ("moe", ("gmm_tile_kernel", "gmm_stream_kernel",
                     "splitk_reduce_kernel")),
            ("ssm", ("chunk_state_kernel", "state_pass_kernel",
