@@ -83,7 +83,12 @@ nothing of the JAX package. Phases, each printing its own lines:
    steps and 128 state columns in another order), the same against fp64
    on the first sequence's first two heads, a second launch bitwise
    equal. Timing as in phase 3, no library time: no single PyTorch call
-   computes the SSD scan. Bound = max(bytes of xdt, a_dt, b, c, y and the
+   computes the SSD scan; ``graph_ms`` is the call's device work alone
+   (CUDA-graph replay), and an ``ssm_launches_ms`` line per step gives
+   each of B5's four kernels' device ms a call (``torch.profiler`` over 5
+   calls). An ``ssm_occupancy`` line first gives the blocks an SM the
+   runtime grants each kernel (``mamba2_scan.occupancy``) and the warps
+   that makes. Bound = max(bytes of xdt, a_dt, b, c, y and the
    states / 3.35 TB/s, FLOPs / 67 TFLOP/s), the FLOPs what the inputs
    need: CBᵀ on the L(L+1)/2 pairs j ≤ i once per batch and chunk (B and
    C are shared by the heads), per head and chunk the masked scores
@@ -172,8 +177,8 @@ of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
 ``decode_*``; B4's at the gate/up shape of the capacity 5d launched it at
 most, with the gate/up shape of the largest capacity 5d launched as
 ``prefill_*``; ``*graph_ms`` are device times alone, by CUDA-graph
-replay; B5's at 5e (i)'s shape from a zero state), and the card's name
-and power limit.
+replay; B5's at 5e (i)'s shape from a zero state, with 5e (ii)'s as
+``long_*``), and the card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -194,7 +199,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 
+from compare_mamba2_scan import device_ms_by_kernel  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import LinearCostModel, make_scheduler  # noqa: E402
 from repro_torch.engine import (Engine, EngineConfig,  # noqa: E402
@@ -204,6 +211,7 @@ from repro_torch.engine.numerics import ModelTimedExecutor  # noqa: E402
 from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import mamba2_scan  # noqa: E402
 from repro_torch.kernels.mamba2_scan import mamba_chunk_scan  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -963,13 +971,25 @@ def check_ssm_kernel(name, shape, nonzero, timer, device, seed=0) -> dict:
         _emit("ssm_kernel_step", rec)
         raise AssertionError(f"{name}: B5 disagrees with its plain version")
     rec.update(time_in_turns(timer, kern, plain, None))
+    if torch.device(device).type == "cuda":
+        rec["graph_ms"] = graph_timer(kern)
+        _emit("ssm_launches_ms", {"step": name,
+                                  "ms": device_ms_by_kernel(kern, 5)})
     return rec
 
 
 def phase_ssm_kernels(device, timer, cfg=None, steps=SSM_STEPS) -> list:
     """Phase 3e at ``cfg``'s heads (mamba2-1.3b by default): every step
-    from a zero and from a nonzero initial state."""
+    from a zero and from a nonzero initial state; on the card first the
+    occupancy the runtime grants B5's kernels."""
     cfg = cfg or get("mamba2-1.3b")
+    if torch.device(device).type == "cuda":
+        blocks = mamba2_scan.occupancy()
+        plan = mamba2_scan.scan_plan(*scan_shape(cfg, *steps[0][1:]))
+        _emit("ssm_occupancy", {
+            "blocks_per_sm": blocks,
+            "warps_per_sm": {k: blocks[k] * launch.threads // 32
+                             for k, launch in plan.launches.items()}})
     recs = []
     for i, (name, batch, prompt) in enumerate(steps):
         for nonzero in (False, True):
@@ -1806,6 +1826,7 @@ def main() -> int:
     pre_mrec = max((r for r in served_mrecs if r["step"].endswith("gate_up")),
                    key=lambda r: r["C"])   # gate/up at 5d's largest C
     main_srec = srecs[0]          # step (l), zero state: 5e (i)'s shape
+    long_srec = srecs[2]          # step (m), zero state: 5e (ii)'s shape
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -1865,7 +1886,10 @@ def main() -> int:
                            for r in srecs),
         "ms": main_srec["ms"], "plain_ms": main_srec["plain_ms"],
         "bound_ms": main_srec["bound_ms"], "bound_by": main_srec["bound_by"],
-        "library_ms": main_srec["library_ms"]}]
+        "library_ms": main_srec["library_ms"],
+        "graph_ms": main_srec["graph_ms"], "long_ms": long_srec["ms"],
+        "long_graph_ms": long_srec["graph_ms"],
+        "long_bound_ms": long_srec["bound_ms"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

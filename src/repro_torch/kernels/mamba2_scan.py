@@ -4,40 +4,133 @@
 ``src/repro/kernels/mamba2_scan.py::mamba_chunk_scan``, the Pallas TPU
 kernel of the SSD chunk scan; kernel ``csrc/mamba2_scan.cu``, CUDA C++ for
 sm_90a, built by ``_build``. The source notes what bounds it on the H100
-and how its design differs from the TPU grid: three launches (each chunk's
-own state, the state carried across chunks, then y) where the TPU walks
-the chunks of one (batch, head) in order. It takes an initial state and
-returns the final one in the model's (B, H, P, N) convention — what the
-model's ``ssd_chunked`` computes — where the TPU kernel starts from zeros
-and returns (B, H, N, P).
+and how its design differs from the TPU grid: four launches (acum, Cᵀ and
+the causal tiles of C Bᵀ once per chunk; each chunk's own state; the state
+carried across chunks; then y) where the TPU walks the chunks of one
+(batch, head) in order. ``scan_plan`` lays the launches out from
+host-known sizes, and the launcher refuses a plan whose shared memory
+disagrees with its own. It takes an initial state and returns the final
+one in the model's (B, H, P, N) convention — what the model's
+``ssd_chunked`` computes — where the TPU kernel starts from zeros and
+returns (B, H, N, P).
 
 Tensors on the CPU take the plain version (``ref.mamba_chunk_scan_ref``);
 tensors on a CUDA device launch the kernel or raise — there is no
 fallback. ``mamba_chunk_scan.launches`` counts the kernel's calls (one per
-call, whose three launches run on the current stream), and nothing else.
+call, whose four launches run on the current stream), and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build, ref
+from .moe_gmm import H100_SMS
 
-# argtypes of every extern "C" launcher, by symbol
-_SIG = {"mamba2_scan_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p]}
+# argtypes of every extern "C" function, by symbol
+_SIG = {"mamba2_scan_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+        + [ctypes.c_void_p],
+        "mamba2_scan_occupancy": [ctypes.c_void_p]}
 MAX_L, MAX_N, MAX_P = 128, 128, 64     # the kernel's shared-memory tiles
 _GRID_YZ = 65535                       # gridDim.y (chunks), gridDim.z (batch)
+# the source's sizes (csrc/mamba2_scan.cu): k rows a slab, stage buffers
+# and acum slots of launches 2 and 4, their threads and the blocks an SM
+# they are built for; launch 1's C and B tiles, rows padded by 4 floats
+SLAB, STAGES, ACUM_SLOTS = 32, 2, 3
+THREADS, BLOCKS_PER_SM = 128, 4
+PREP_THREADS = PASS_THREADS = 256
+PIPE_SMEM = 4 * (STAGES * SLAB * (MAX_L + MAX_P) + ACUM_SLOTS * MAX_L)
+PREP_SMEM = 4 * (32 + MAX_L) * (MAX_N + 4)
+WAVES = 2             # launches 2 and 4 take fewer heads a block below this
+KERNELS = ("chunk_prep_kernel", "chunk_state_kernel", "state_pass_kernel",
+           "chunk_scan_kernel")
 
 
-def _launcher():
-    fn = _build.load("mamba2_scan").mamba2_scan_f32
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One launch: its grid, threads a block, heads a block (0: the launch
+    does not walk heads) and dynamic shared memory a block (bytes)."""
+    grid: tuple
+    threads: int
+    heads: int
+    smem: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One call of B5, from host-known sizes only: ``lp`` (L rounded up to
+    4, the row stride of the acum, Cᵀ and Gᵀ scratch), the four launches
+    in order (``prep``, ``state``, ``state_pass``, ``scan``) and the
+    shapes of the scratch the wrapper allocates."""
+    lp: int
+    prep: Launch
+    state: Launch
+    state_pass: Launch
+    scan: Launch
+    scratch: dict
+
+    @property
+    def launches(self) -> dict:
+        return dict(zip(KERNELS, (self.prep, self.state, self.state_pass,
+                                  self.scan)))
+
+
+def _heads_per_block(h: int, chunks: int, sms: int) -> int:
+    """8 heads a block of launches 2 and 4 where the grid still makes WAVES
+    waves of BLOCKS_PER_SM blocks on ``sms`` SMs, else 4 or 2, else 1: the
+    more heads a block walks, the fewer pipelines fill and drain; the
+    fewer, the fuller the card (``chunks`` = B x NC blocks a head group)."""
+    for hb in (8, 4, 2):
+        if -(-h // hb) * chunks >= WAVES * sms * BLOCKS_PER_SM:
+            return hb
+    return 1
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(b: int, nc: int, l: int, h: int, p: int, n: int,
+              sms: int = H100_SMS) -> ScanPlan:
+    """B5's layout for xdt (B, NC, L, H, P) and b, c (B, NC, L, N) on a card
+    of ``sms`` SMs: launch 1 a block per (32-row quarter of a chunk, chunk,
+    batch); launches 2 and 4 a block per (head group, chunk, batch), the
+    heads a block from ``_heads_per_block``; launch 3 a thread per 4
+    elements of the (B, H, N, P) state."""
+    lp = -(-l // 4) * 4
+    hb = _heads_per_block(h, b * nc, sms)
+    groups = (-(-h // hb), nc, b)
+    return ScanPlan(
+        lp,
+        Launch((-(-lp // 32), nc, b), PREP_THREADS, 0, PREP_SMEM),
+        Launch(groups, THREADS, hb, PIPE_SMEM),
+        Launch((-(-(b * h * n * p // 4) // PASS_THREADS),), PASS_THREADS, 0,
+               0),
+        Launch(groups, THREADS, hb, PIPE_SMEM),
+        {"states": (b, nc, h, n, p), "decay": (b, nc, h),
+         "acum": (b, nc, h, lp), "ct": (b, nc, n, lp), "gt": (b, nc, l, lp)})
+
+
+def _function(symbol: str):
+    fn = getattr(_build.load("mamba2_scan"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _SIG["mamba2_scan_f32"]
+        fn.argtypes = _SIG[symbol]
         fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy(device=None) -> dict:
+    """Blocks an SM the runtime grants each of B5's launches on ``device``
+    (default: the current CUDA device), by kernel name: what
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports at each
+    launch's block size and shared memory."""
+    blocks = (ctypes.c_int * len(KERNELS))()
+    with torch.cuda.device(device):
+        rc = _function("mamba2_scan_occupancy")(ctypes.addressof(blocks))
+    if rc != 0:
+        raise RuntimeError(f"mamba2_scan_occupancy failed: cudaError {rc}")
+    return dict(zip(KERNELS, blocks))
 
 
 def _check(xdt, a_dt, b, c, init_state) -> None:
@@ -98,18 +191,25 @@ def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     bsz, nc, l, h, p = xdt.shape
     n = b.shape[-1]
     dev = xdt.device
+    plan = scan_plan(bsz, nc, l, h, p, n)
     y = torch.empty_like(xdt)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
-    # scratch: each chunk's own state, then the state carried into it
-    states = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=dev)
-    decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=dev)
-    fn = _launcher()
+    # one scratch buffer, cut in the launcher's order: states (each chunk's
+    # own state, then the state carried into it), acum, Cᵀ, Gᵀ, decay
+    # last (every other size is a multiple of 4 floats: 16-byte aligned)
+    order = ("states", "acum", "ct", "gt", "decay")
+    sizes = [torch.Size(plan.scratch[k]).numel() for k in order]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    ptrs = dict(zip(order, (t.data_ptr() for t in flat.split(sizes))))
+    fn = _function("mamba2_scan_f32")
     s0 = None if init_state is None else init_state.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(xdt.data_ptr(), a_dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-                s0, y.data_ptr(), state.data_ptr(), states.data_ptr(),
-                decay.data_ptr(), bsz, nc, l, h, p, n, stream)
+                s0, y.data_ptr(), state.data_ptr(), ptrs["states"],
+                ptrs["decay"], ptrs["acum"], ptrs["ct"], ptrs["gt"], bsz,
+                nc, l, h, p, n, plan.state.heads, plan.scan.heads,
+                plan.prep.smem, plan.state.smem, plan.scan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"mamba_chunk_scan launch failed: cudaError {rc}")
     mamba_chunk_scan.launches += 1

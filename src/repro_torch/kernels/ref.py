@@ -397,3 +397,55 @@ def mamba_chunk_scan_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
     y_off = torch.einsum("bcln,bchpn->bclhp", c, prev_states)
     y_off = y_off * torch.exp(a_cum)[..., None]
     return y_diag + y_off, carry
+
+
+def mamba_chunk_scan_split_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
+                               b: torch.Tensor, c: torch.Tensor,
+                               init_state: Optional[torch.Tensor] = None,
+                               slab: int = 32):
+    """The SSD chunk scan as kernel B5 splits it (csrc/mamba2_scan.cu),
+    in plain PyTorch (fp32, or fp64 for fp64 inputs), same contract as
+    ``mamba_chunk_scan_ref``:
+
+    1. per chunk, acum = cumsum(a) for every head, the chunk's decay
+       exp(acum_L), and G = C Bᵀ once for all heads, formed only on the
+       ``slab`` x ``slab`` tiles at or below the diagonal (the rest stays
+       0, never formed);
+    2. each chunk's own end state from a zero start, Bᵀ (w ⊙ X) with w =
+       exp(acum_L − acum), in the kernel's (N, P) layout;
+    3. the state carried into each chunk, in chunk order, and the final
+       state;
+    4. y = exp(acum) ⊙ (C · carried state) + M X, M = G ⊙ exp(acum_i −
+       acum_j) on i >= j, 0 above the diagonal (a select: the decay above
+       it is never multiplied in)."""
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x, a, b, c = (t.to(dt) for t in (xdt, a_dt, b, c))
+    bsz, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    acum = torch.cumsum(a, dim=2)                             # (b,c,l,h)
+    decay = torch.exp(acum[:, :, -1])                         # (b,c,h)
+    g = torch.zeros(bsz, nc, l, l, dtype=dt, device=x.device)
+    for i0 in range(0, l, slab):                # causal tiles of G only
+        for j0 in range(0, i0 + 1, slab):
+            g[:, :, i0:i0 + slab, j0:j0 + slab] = torch.einsum(
+                "bcin,bcjn->bcij", c[:, :, i0:i0 + slab],
+                b[:, :, j0:j0 + slab])
+    w = torch.exp(acum[:, :, -1:] - acum)                     # (b,c,l,h)
+    own = torch.einsum("bcjn,bcjhp->bchnp", b, x * w[..., None])
+    carry = (torch.zeros(bsz, h, n, p, dtype=dt, device=x.device)
+             if init_state is None else init_state.to(dt).transpose(-1, -2))
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * decay[:, i, :, None, None] + own[:, i]
+    prev = torch.stack(prev, dim=1)                           # (b,c,h,n,p)
+    y_off = torch.einsum("bcin,bchnp->bcihp", c, prev)
+    y_off = y_off * torch.exp(acum)[..., None]
+    seg = acum.permute(0, 1, 3, 2)                            # (b,c,h,l)
+    diff = seg[..., :, None] - seg[..., None, :]              # (b,c,h,i,j)
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    m = torch.where(causal, g[:, :, None] * torch.exp(
+        diff.masked_fill(~causal, 0.0)), torch.zeros((), dtype=dt,
+                                                     device=x.device))
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", m, x)
+    return y_off + y_diag, carry.transpose(-1, -2)

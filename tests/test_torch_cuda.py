@@ -37,9 +37,12 @@ the MoE executor on the card gives the CPU's tokens under both
 ``moe_impl``s, B4 launching three times per layer and router chunk.
 The SSD chunk scan (B5) is held against its plain version at 1e-4 ×
 max(1, max|plain|) (fp32 sums over at most 128 steps and 128 state
-columns, in another order) over chunk lengths 5-128, the JAX suite's
-sweep, mamba2-1.3b's widths (H 64, P 64, N 128) and its reduced config's,
-with and without an initial state, and repeats bitwise; the reduced
+columns, in another order) over chunk lengths 5-128 (on both sides of
+its 32-step slabs and 32-row quarters), the JAX suite's sweep,
+mamba2-1.3b's widths (H 64, P 64, N 128) and its reduced config's, head
+counts its head groups do not divide, 256 chunks, with and without an
+initial state, and repeats bitwise; it writes every row of an output
+that starts as NaN; the reduced
 mamba2-1.3b ``DecoderLM`` on the card gives the CPU's greedy tokens, B5
 launching once per layer per prefill and never in a decode step.
 """
@@ -844,11 +847,19 @@ def test_moe_executor_card_matches_cpu(cuda, moe_impl, path):
 
 # (B, NC, L, H, P, N): the JAX suite's sweep, ragged chunks of 5-100 steps
 # (prompts shorter than the chunk), P != N, more heads than a block takes,
-# the reduced mamba2-1.3b (8 heads of 16, N 16) and its full widths
+# the reduced mamba2-1.3b (8 heads of 16, N 16) and its full widths; then
+# the edges of the 32-step slabs and 32-row quarters at full heads (L 64,
+# 65, 96, 127), head counts no head group divides (H 9, 65; at 8 x 33 and
+# 1 x 120 chunks the plan gives 2 and 8 heads a block, the last group
+# holding one) and 256 chunks
 SCAN_SHAPES = [(1, 2, 8, 2, 8, 8), (2, 3, 16, 4, 16, 8), (2, 4, 32, 2, 32, 16),
                (1, 3, 5, 3, 12, 4), (2, 2, 33, 9, 16, 16),
                (2, 1, 24, 8, 16, 16), (1, 4, 127, 5, 64, 128),
-               (2, 3, 100, 64, 64, 128), (2, 3, 128, 64, 64, 128)]
+               (2, 3, 100, 64, 64, 128), (2, 3, 128, 64, 64, 128),
+               (1, 2, 64, 64, 64, 128), (1, 2, 65, 64, 64, 128),
+               (1, 2, 96, 64, 64, 128), (1, 2, 127, 64, 64, 128),
+               (2, 2, 128, 9, 64, 128), (8, 33, 128, 9, 64, 128),
+               (1, 120, 128, 65, 64, 128), (1, 256, 128, 8, 64, 128)]
 
 
 def _scan_inputs(shape, device, seed=0):
@@ -872,6 +883,28 @@ def test_mamba_chunk_scan_matches_plain_version(cuda, shape, init):
     torch.cuda.synchronize()
     assert mamba_chunk_scan.launches == before + 2
     assert y.shape == shape[:5] and st.shape == str_.shape
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = 1e-4 * max(1.0, float(yr.abs().max()))
+    assert float((y - yr).abs().max()) < tol
+    tol = 1e-4 * max(1.0, float(str_.abs().max()))
+    assert float((st - str_).abs().max()) < tol
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 100, 9, 64, 128),
+                                   (1, 2, 5, 3, 12, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mamba_chunk_scan_writes_every_output(cuda, shape, monkeypatch):
+    """y starts as NaN (the wrapper does not zero it): every row of every
+    head is written, within 1e-4 of the plain version, and a repeat is
+    bitwise equal."""
+    x, a, b, c, s0 = _scan_inputs(shape, cuda, seed=1)
+    yr, str_ = mamba_chunk_scan_ref(x, a, b, c, s0)
+    nan_like = lambda t, **kw: torch.full_like(t, float("nan"), **kw)
+    monkeypatch.setattr(torch, "empty_like", nan_like)
+    y, st = mamba_chunk_scan(x, a, b, c, s0)
+    y2, st2 = mamba_chunk_scan(x, a, b, c, s0)
+    torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     tol = 1e-4 * max(1.0, float(yr.abs().max()))
     assert float((y - yr).abs().max()) < tol

@@ -32,7 +32,7 @@ to show what that check costs. Prints, as JSON lines:
   kernels — quantization and the MoE dispatch among them — copies) from
   the trace, and each class's share;
 * ``ssm_launches_ms`` (SSM archs) — the ``ssm`` class's device ms by
-  B5's three launches (chunk states, state pass, chunk scan);
+  B5's four launches (chunk prep, chunk states, state pass, chunk scan);
 * ``device_busy`` — the union of device activity over the traced serving
   wall time, and its complement, the idle share;
 * ``per_step`` — for steps that carry prefill, decode-only steps and
@@ -78,8 +78,8 @@ CLASSES = (("attention", ("decode_split_kernel", "merge_splits_kernel",
                           "chunk_tile_kernel")),
            ("moe", ("gmm_tile_kernel", "gmm_stream_kernel",
                     "splitk_reduce_kernel")),
-           ("ssm", ("chunk_state_kernel", "state_pass_kernel",
-                    "chunk_scan_kernel")),
+           ("ssm", ("chunk_prep_kernel", "chunk_state_kernel",
+                    "state_pass_kernel", "chunk_scan_kernel")),
            ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_")),
            ("kv_scatter", ("index_put", "indexing_backward", "scatter")))
 
@@ -241,7 +241,7 @@ def main() -> int:
     total = sum(by_cls.values())
     print("device_time", json.dumps({
         "ms": by_cls, "share": {k: v / total for k, v in by_cls.items()}}))
-    if ssm:       # B5's three launches apart
+    if ssm:       # B5's four launches apart
         parts: dict[str, float] = {}
         for e in dev:
             low = e.get("name", "").lower()
