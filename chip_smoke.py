@@ -129,6 +129,34 @@ nothing of the JAX package. Phases, each printing its own lines:
    ``decode_step``s on the card and on the CPU: tokens equal, first
    logits within 1e-3; B5 launched n_layers times in the prefill and
    never in decode, no other kernel.
+4f. prefix cache and preemption parity — phase 4's model and weights
+   serve the first 8 requests of ``make_scenario("shared-sysprompt",
+   rps=8.0, duration=2.0, seed=0)`` (tokens mod vocab, prompts cut at 640
+   tokens: the 512-token system prompt and up to 128 more, so the CPU's
+   plain attention stays within seconds; 8 new tokens) through the fused
+   executor with a 512-page ``PrefixCache`` attached (pages of 16), the
+   engine on the cost model's clock so that card and CPU make the same
+   plans, in fp32 and int8. Gates: card tokens = CPU tokens, first-token
+   logits within 1e-3 in fp32 (reported in int8, as in 4c), cached tokens
+   > 0 and equal on card and CPU, a capacity-0 cache gives the no-cache
+   tokens, the allocator's and the radix tree's invariants hold and no
+   page leaks, B1 (fp32) or B2 (int8) launches n_layers per dispatch. Then
+   tests/test_preemption.py's shared-prefix pair (a 64-token prefix, pages
+   of 16): the victim forked onto the survivor's cached pages is evicted
+   mid-decode (``Engine._preempt``) and recomputes its tail; at least one
+   preemption, the survivor's table untouched and its stream equal to the
+   run without preemption.
+4g. migration parity — the same model and weights, two executors on the
+   card sharing them, fixed plans (a teacher-forced chunk driver): four
+   requests move to the second executor at decode counts 1, 3, 5 and 2,
+   three by KV (``capture_kv`` → release → ``install_kv_pages``) and one
+   by recompute; then two requests behind a shared 32-token prefix move
+   into a destination whose cache holds the first one's prompt, their
+   leading blocks by reference; fp32 and int8 (scale ids permuted on both
+   sides). Gates: every stream equals the single-executor run's, every
+   installed page and scale page equals the captured payload byte for
+   byte, the referenced pages are the expected ones and the wire carries
+   only the other pages (0 bytes for the leading blocks).
 5. serve — the full 24-layer h2o-danube-1.8b (fp32 weights from a seed)
    serves 16 requests through ``Engine`` + the ``fairbatching`` scheduler +
    the fused ``PagedTransformerExecutor``; every request must finish with
@@ -159,6 +187,27 @@ nothing of the JAX package. Phases, each printing its own lines:
    serving numbers (host step medians; device time by kernel class is
    ``tools/profile_torch_serve.py --arch mixtral-8x7b --layers 8``'s) and
    B4's launches by capacity, at which phase 3d's check then runs.
+5f. prefix-cached serving — the full-depth model of phase 5 serves the
+   first 64 requests by arrival of ``make_scenario("shared-sysprompt",
+   rps=8.0, duration=8.0, seed=3)`` (prompts cut at 3072 tokens, 32 new
+   tokens, arriving as traced; 1024 pages of 128, 32 a sequence) with no
+   cache and with a 512-page ``PrefixCache``; then with the cache and
+   ``preemption=True`` on a pool cut to 168 pages, the engine on the cost
+   model's clock there so that its preemptions do not depend on the
+   device. Gates: every request finishes with 32 tokens in [0, vocab), B1
+   launches n_layers per fused dispatch, the invariants hold, cached
+   tokens > 0, preemptions > 0 in the third run. Reports the hit rate,
+   cached tokens, TTFT and TPOT p50/p99, output tokens/s, peak memory and
+   the share of tokens equal to the uncached run.
+5g. KV migration at full depth — phase 5's 16 prompts (256–3072 tokens,
+   32 new tokens) run on a source executor for their prefill and 4 decode
+   steps (5 tokens), then move by KV to a second executor on the card
+   (the same weights, 512 pages of 128 each), which runs the other 27
+   steps; fp32 and int8, fixed plans (chunks of 512). Gates: the installed
+   pages equal the payload byte for byte, every request finishes. Reports
+   per move (``migrate_serve_move``) the capture and install ms (each
+   between two synchronizations), bytes and GB/s each way, and the share
+   of tokens equal to a never-migrated run on the same plans.
 5e. SSM serving — mamba2-1.3b at full depth (48 layers, 5.8 GB of fp32
    weights, seed 0) through ``DecoderLM.prefill`` plus greedy
    ``decode_step``s, each step ending on its tokens' copy to the host:
@@ -170,7 +219,8 @@ nothing of the JAX package. Phases, each printing its own lines:
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
-4c, 4d, 4e, 5, 5b, 5c, 5d, 5e; B1's times at step (a), pages of 128,
+4c, 4d, 4e, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e (B1 and B2 launch in 4f,
+4g, 5f and 5g); B1's times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
 of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
@@ -194,6 +244,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -202,10 +253,16 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 
 from compare_mamba2_scan import device_ms_by_kernel  # noqa: E402
+from repro_torch.cache import PrefixCache  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
-from repro_torch.core import LinearCostModel, make_scheduler  # noqa: E402
+from repro_torch.core import (BatchItem, BatchPlan,  # noqa: E402
+                              LinearCostModel, TaskKind, make_scheduler)
+from repro_torch.data.traces import make_scenario  # noqa: E402
+from repro_torch.disagg.migration import (  # noqa: E402
+    capture_kv, install_kv_pages)
 from repro_torch.engine import (Engine, EngineConfig,  # noqa: E402
-                                PagedTransformerExecutor, Request)
+                                PagedTransformerExecutor, Request,
+                                RequestState)
 from repro_torch.engine.metrics import summarize  # noqa: E402
 from repro_torch.engine.numerics import ModelTimedExecutor  # noqa: E402
 from repro_torch.engine.spec_decode import (  # noqa: E402
@@ -217,7 +274,7 @@ from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
-    dequantize_kv, kv_quant_spec, quantize_kv)
+    dequantize_kv, kv_quant_spec, quantize_kv, raw_pool)
 from repro_torch.kernels.ref import (  # noqa: E402
     mamba_chunk_scan_ref, moe_gmm_ref, paged_attention_ragged_quant_ref,
     paged_attention_ragged_ref, paged_attention_ref)
@@ -1027,6 +1084,20 @@ KERNELS = {"paged_attention_ragged": paged_attention_ragged,
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 
 
+def _counted(cuda: bool, fn):
+    """Run ``fn`` with every kernel's count set to 0 just before; return
+    its result and the launches it made (added to the serving sums on the
+    card)."""
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if cuda:
+        for name, c in launches.items():
+            SERVING_LAUNCHES[name] += c
+    return out, launches
+
+
 @dataclasses.dataclass
 class Served:
     """One serving run: its engine and executor, first-token logits by
@@ -1081,13 +1152,16 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
           max_pages_per_seq, capture_logits=False, max_steps=20_000,
           mode="fused", horizon=1, gamma=0, draft=None,
           check_sync=True, kv_dtype="fp32", ragged=True,
-          moe_impl="exact", clock=None) -> Served:
+          moe_impl="exact", clock=None, cache_pages=None,
+          preemption=False) -> Served:
     """Serve ``requests`` to completion. On the card, with ``check_sync``,
     every committed horizon and speculative round body runs under torch's
     sync debug mode set to raise: it may not wait for the device. With a
     ``clock`` (a ``LinearCostModel``) the engine runs on that model's step
     times instead of the wall clock, so that the plans do not depend on
-    the device."""
+    the device. ``cache_pages`` (not None) attaches a ``PrefixCache`` of
+    that many pages on the executor's allocator (0: a disabled cache);
+    ``preemption`` lets the engine evict victims for starving requests."""
     ex = PagedTransformerExecutor(cfg, params, num_pages=num_pages,
                                   page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
@@ -1121,28 +1195,32 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
     else:
         sched = make_scheduler("fairbatching", clock, calibrate=False)
         timed = ModelTimedExecutor(ex, clock)
+    cache = None
+    if cache_pages is not None:
+        cache = PrefixCache(cache_pages, block_size=page_size, alloc=ex.alloc)
+        ex.attach_cache(cache)
     eng = Engine(sched, timed, EngineConfig(ttft_slo=slo_ttft,
                                             tpot_slo=slo_tpot,
                                             commit_horizon=horizon,
-                                            speculate=gamma))
+                                            speculate=gamma,
+                                            preemption=preemption),
+                 prefix_cache=cache)
     for r in requests:
         eng.submit(r)
-    first, n = {}, 0
-    for k in KERNELS.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    while eng.has_work and n < max_steps:
-        eng.step()
-        n += 1
-        for rid, lg in ex.last_logits.items():
-            first.setdefault(rid, lg)
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    first = {}
+
+    def loop() -> float:
+        t0, n = time.perf_counter(), 0
+        while eng.has_work and n < max_steps:
+            eng.step()
+            n += 1
+            for rid, lg in ex.last_logits.items():
+                first.setdefault(rid, lg)
+        return time.perf_counter() - t0
+
+    wall, launches = _counted(cuda, loop)
     if eng.has_work:
         raise AssertionError(f"engine still busy after {max_steps} steps")
-    if cuda:
-        for name, c in launches.items():
-            SERVING_LAUNCHES[name] += c
     return Served(eng, ex, first, wall, launches, multi, forwards)
 
 
@@ -1754,6 +1832,513 @@ def phase_ssm_serve(cfg, device, workloads=SSM_SERVE) -> list:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 4f, 4g, 5f, 5g: the prefix cache, preemption and KV migration
+# ---------------------------------------------------------------------------
+
+def scenario_requests(cfg, name: str, *, rps: float, duration: float,
+                      seed: int, n: int, new_tokens: int,
+                      max_prompt: Optional[int] = None,
+                      slo=(30.0, 2.0)) -> list:
+    """The first ``n`` requests by arrival of a scenario trace, arriving as
+    traced, with the trace's own token ids mod the vocabulary (prompts cut
+    at ``max_prompt``)."""
+    trace = sorted(make_scenario(name, rps=rps, duration=duration,
+                                 seed=seed), key=lambda t: t.arrival)[:n]
+    reqs = []
+    for i, tr in enumerate(trace):
+        toks = [t % cfg.vocab for t in tr.tokens[:max_prompt]]
+        reqs.append(Request(i, arrival=tr.arrival, prompt_len=len(toks),
+                            max_new_tokens=new_tokens, ttft_slo=slo[0],
+                            tpot_slo=slo[1], tokens=toks))
+    return reqs
+
+
+def sysprompt_requests(cfg) -> list:
+    """Phase 4f's traffic: 8 requests of a shared-sysprompt trace, 8 new
+    tokens each, prompts cut at 640 tokens (the 512-token system prompt and
+    up to 128 of the user's) so that the CPU's plain attention stays
+    within seconds at full width."""
+    return scenario_requests(cfg, "shared-sysprompt", rps=8.0, duration=2.0,
+                             seed=0, n=8, new_tokens=8, max_prompt=640)
+
+
+def _check_pages(ex, cache=None) -> None:
+    """Allocator and radix invariants; once every request is done, only
+    the trash page and the pages the cache holds are in use."""
+    ex.alloc.check_invariants()
+    held = 0
+    if cache is not None and cache.enabled:
+        cache.tree.check_invariants()
+        held = cache.held_pages
+    if ex.alloc.free_blocks + held != ex.alloc.num_blocks - 1:
+        raise AssertionError("pages leaked")
+
+
+CACHE_PARITY_PAGES = dict(page_size=16, num_pages=2048, max_pages_per_seq=200)
+CACHE_PARITY_CAPACITY = 512
+
+
+def preemption_pair(cfg, params, device, preempt: bool) -> dict:
+    """tests/test_preemption.py's shared-prefix pair at ``cfg``'s width: X
+    publishes a 64-token prefix, Y forks it through the cache; with
+    ``preempt`` Y is evicted mid-decode (``Engine._preempt``) and resumes
+    by recomputing its uncached tail. The engine runs on the model clock.
+    Returns both streams and the preemption count."""
+    rng = np.random.default_rng(11)
+    shared = [int(x) for x in rng.integers(0, cfg.vocab, 64)]
+    prompts = (shared + [1, 2, 3],
+               shared + [int(x) for x in rng.integers(0, cfg.vocab, 12)])
+    ex = PagedTransformerExecutor(cfg, params, num_pages=64, page_size=16,
+                                  max_pages_per_seq=16, device=device)
+    cache = PrefixCache(8, block_size=16, alloc=ex.alloc)
+    ex.attach_cache(cache)
+    eng = Engine(make_scheduler("fairbatching", MODEL_CLOCK,
+                                calibrate=False),
+                 ModelTimedExecutor(ex, MODEL_CLOCK),
+                 EngineConfig(ttft_slo=5.0, tpot_slo=5.0, preemption=True,
+                              defer_age=0.01), prefix_cache=cache)
+    req = lambda i, now: Request(i, arrival=now, prompt_len=len(prompts[i]),
+                                 max_new_tokens=16, ttft_slo=5.0,
+                                 tpot_slo=5.0, tokens=list(prompts[i]))
+    eng.submit(req(0, 0.0))
+    while eng.requests.get(0) is None or \
+            eng.requests[0].prefilled < len(prompts[0]):
+        eng.step()
+    eng.submit(req(1, eng.now))
+    while eng.requests.get(1) is None or eng.requests[1].generated < 4:
+        eng.step()
+    x_table = list(ex.alloc.tables[0])
+    shared_pages = [p for p in x_table if ex.alloc.refcount[p] > 1]
+    if preempt:
+        eng._preempt(eng.requests[1])
+        if ex.alloc.tables[0] != x_table or not all(
+                p in ex.alloc.refcount for p in shared_pages):
+            raise AssertionError("eviction touched the survivor")
+    eng.run(max_steps=3000)
+    _check_pages(ex, cache)
+    return {"tokens": [eng.requests[i].generated_tokens for i in (0, 1)],
+            "preemptions": eng.preemptions,
+            "shared_pages": len(shared_pages),
+            "victim_cached_context": eng.requests[1].cached_context}
+
+
+def phase_cache_parity(cfg, device) -> list:
+    """Phase 4f: phase 4's model and weights serve 8 shared-sysprompt
+    requests with a ``PrefixCache`` attached, on the model clock (so card
+    and CPU make the same plans), in fp32 and int8; then the preemption
+    pair."""
+    cuda = torch.device(device).type == "cuda"
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    recs = []
+    for kv in ("fp32", "int8"):
+        runs = {}
+        for dev in (device, "cpu"):
+            runs[dev] = serve(cfg, params, dev, sysprompt_requests(cfg),
+                              capture_logits=True, kv_dtype=kv,
+                              clock=MODEL_CLOCK,
+                              cache_pages=CACHE_PARITY_CAPACITY,
+                              **CACHE_PARITY_PAGES)
+            _check_pages(runs[dev].ex, runs[dev].eng.prefix_cache)
+        d, c = runs[device], runs["cpu"]
+        ref = {}
+        for name, pages in (("no_cache", None), ("capacity_0", 0)):
+            ref[name] = serve(cfg, params, device, sysprompt_requests(cfg),
+                              kv_dtype=kv, clock=MODEL_CLOCK,
+                              cache_pages=pages, **CACHE_PARITY_PAGES)
+        err = max(float(np.abs(d.first[r] - c.first[r]).max())
+                  for r in c.first)
+        stats = d.eng.prefix_cache.stats
+        quant = "paged_attention_ragged_quant"
+        kern = quant if kv != "fp32" else "paged_attention_ragged"
+        rec = {"kv_dtype": kv, "requests": len(d.tokens),
+               "prompt_tokens": sum(r.prompt_len
+                                    for r in d.eng.requests.values()),
+               "tokens_equal_cpu": d.tokens == c.tokens,
+               "first_logits_max_abs_err": err,
+               "cached_tokens": stats.hit_tokens,
+               "cached_tokens_cpu": c.eng.prefix_cache.stats.hit_tokens,
+               "hit_requests": stats.hit_requests,
+               "evicted_pages": stats.evicted_pages,
+               "capacity_0_tokens_equal_no_cache":
+                   ref["capacity_0"].tokens == ref["no_cache"].tokens,
+               "share_tokens_equal_no_cache": _share_equal(
+                   d.tokens, ref["no_cache"].tokens),
+               "dispatches": d.ex.n_dispatches, "launches": d.launches,
+               "expected_launches": cfg.n_layers * d.ex.n_dispatches}
+        _emit("cache_parity", rec)
+        recs.append(rec)
+        ok = (rec["tokens_equal_cpu"] and d.first.keys() == c.first.keys()
+              and 0 < rec["cached_tokens"] == rec["cached_tokens_cpu"]
+              and rec["capacity_0_tokens_equal_no_cache"]
+              and d.launches[kern] == rec["expected_launches"])
+        if kv == "fp32":
+            ok &= err <= ATOL_LOGITS
+        if not ok:
+            raise AssertionError(f"cache parity {kv}: card, CPU and the "
+                                 f"no-cache runs disagree")
+        del runs, d, c, ref
+    dparams = params_to(params, device)
+    (plain, with_preempt), launches = _counted(cuda, lambda: (
+        preemption_pair(cfg, dparams, device, False),
+        preemption_pair(cfg, dparams, device, True)))
+    rec = {"preemptions": with_preempt["preemptions"],
+           "shared_pages": with_preempt["shared_pages"],
+           "victim_cached_context": with_preempt["victim_cached_context"],
+           "survivor_tokens_equal": with_preempt["tokens"][0]
+           == plain["tokens"][0],
+           "victim_tokens_equal": with_preempt["tokens"][1]
+           == plain["tokens"][1], "launches": launches}
+    _emit("preemption_parity", rec)
+    recs.append(rec)
+    if (rec["preemptions"] < 1 or plain["preemptions"] != 0
+            or rec["shared_pages"] == 0 or not rec["survivor_tokens_equal"]):
+        raise AssertionError("preemption pair: no preemption, or the "
+                             "survivor's stream changed")
+    return recs
+
+
+def fixed_step(ex, requests: dict, owned, chunk: int) -> int:
+    """One teacher-forced step over the active requests in ``owned``: a
+    decode token each, or a prefill chunk of up to ``chunk`` tokens (the
+    plans depend on nothing the device computes). Returns the items run."""
+    items = []
+    for rid in owned:
+        r = requests[rid]
+        if not r.active:
+            continue
+        if r.state is RequestState.DECODE:
+            items.append(BatchItem(rid, 1, TaskKind.DECODE))
+        else:
+            items.append(BatchItem(rid, min(chunk, r.prompt_len - r.prefilled),
+                                   TaskKind.PREFILL))
+    if not items:
+        return 0
+    plan = BatchPlan(items, 0.0, 0.0, 0, 0)
+    _, emitted = ex.execute(plan, requests, 0.0)
+    if ex.last_deferred:
+        raise AssertionError("pool sized to never defer")
+    for it in plan.items:
+        req = requests[it.req_id]
+        if it.req_id in emitted:
+            req.generated_tokens.append(emitted[it.req_id])
+        req.advance(it.n_tokens, 0.0)
+    return len(items)
+
+
+def never_migrated(ex, requests: list, chunk: int) -> dict:
+    """The single-executor run on fixed plans: the migration oracle."""
+    world = {r.req_id: r for r in requests}
+    while fixed_step(ex, world, list(world), chunk):
+        pass
+    for rid in world:
+        ex.release(rid)
+    _check_pages(ex)
+    return {rid: list(r.generated_tokens) for rid, r in world.items()}
+
+
+def payload_bytes(payload, first_page: int = 0) -> int:
+    return sum(a[:, first_page:].nbytes for a in (
+        payload.k, payload.v, payload.k_scales, payload.v_scales)
+        if a is not None)
+
+
+def installed_equal(ex, rid: int, payload, nref: int) -> bool:
+    """The pages (and scale pages) ``install_kv_pages`` materialized equal
+    the captured payload byte for byte; the ``nref`` leading ones are the
+    destination's cached pages, shared, not copied."""
+    tbl = ex.alloc.tables[rid]
+    if len(tbl) != payload.n_pages or ex.alloc.lens[rid] != payload.n_tokens:
+        return False
+    ok = all(ex.alloc.refcount[p] >= 2 for p in tbl[:nref])
+    idx = torch.as_tensor(tbl[nref:], device=ex.device)
+    for pool, rows in ((ex.k_pages, payload.k), (ex.v_pages, payload.v)):
+        ok &= np.array_equal(raw_pool(pool)[:, idx].cpu().numpy(),
+                             rows[:, nref:])
+    if payload.k_scales is not None:
+        sidx = torch.as_tensor(ex.alloc.scale_table(rid)[nref:],
+                               device=ex.device)
+        for pool, rows in ((ex.k_scales, payload.k_scales),
+                           (ex.v_scales, payload.v_scales)):
+            ok &= np.array_equal(pool[:, sidx].cpu().numpy(), rows[:, nref:])
+    return bool(ok)
+
+
+def migrating_run(src, dst, requests: list, migrate_at: dict, chunk: int, *,
+                  recompute=(), cache=None, timed=False) -> dict:
+    """Drive on ``src``; when a request reaches its ``migrate_at`` decode
+    count move it to ``dst`` (by recompute for those in ``recompute``, else
+    capture → release → install); finish there. Returns the streams and a
+    record per move (pages bitwise equal after install, reference pages,
+    bytes; with ``timed`` the capture and install times, each between two
+    synchronizations)."""
+    world = {r.req_id: r for r in requests}
+    owner = {rid: "src" for rid in world}
+    moves = []
+
+    def synced():
+        if timed:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    while any(r.active for r in world.values()):
+        for side, ex in (("src", src), ("dst", dst)):
+            fixed_step(ex, world, [r for r, o in owner.items() if o == side],
+                       chunk)
+        for rid, r in world.items():
+            if (owner[rid] != "src" or not r.active
+                    or r.state is not RequestState.DECODE
+                    or r.generated < migrate_at[rid]):
+                continue
+            owner[rid] = "dst"
+            if rid in recompute:
+                src.release(rid)
+                r.preempt_requeue()
+                moves.append({"req": rid, "mode": "recompute"})
+                continue
+            t0 = synced()
+            payload = capture_kv(src, rid)
+            t1 = synced()
+            src.release(rid)
+            t2 = synced()
+            nref = install_kv_pages(dst, cache, r, payload, 0.0)
+            t3 = synced()
+            if nref is None:
+                raise AssertionError("destination sized to host the table")
+            move = {"req": rid, "mode": "kv", "pages": payload.n_pages,
+                    "tokens": payload.n_tokens, "ref_pages": nref,
+                    "bytes": payload_bytes(payload),
+                    "wire_bytes": payload_bytes(payload, nref),
+                    "pages_equal": installed_equal(dst, rid, payload, nref)}
+            if timed:
+                move.update(capture_ms=(t1 - t0) * 1e3,
+                            install_ms=(t3 - t2) * 1e3,
+                            d2h_gb_per_s=move["bytes"] / (t1 - t0) / 1e9,
+                            h2d_gb_per_s=move["wire_bytes"] / (t3 - t2)
+                            / 1e9)
+            moves.append(move)
+            src.alloc.check_invariants()
+            dst.alloc.check_invariants()
+    for rid, o in owner.items():
+        (src if o == "src" else dst).release(rid)
+        if cache is not None and o == "dst":
+            cache.end_request(rid)
+    _check_pages(src)
+    _check_pages(dst, cache)
+    return {"tokens": {rid: list(r.generated_tokens)
+                       for rid, r in world.items()}, "moves": moves}
+
+
+MIGRATION_CHUNK = 64
+MIGRATION_PAGES = dict(page_size=16, num_pages=256, max_pages_per_seq=32)
+
+
+def phase_migration_parity(cfg, device) -> list:
+    """Phase 4g: phase 4's model and weights, two executors on ``device``
+    sharing one set of weights, fixed plans. Four requests move by KV at
+    decode counts 1, 3, 5 and 2, one of them instead by recompute; then
+    two requests behind a shared 32-token prefix move into a destination
+    whose cache already holds request 0's prompt, its leading blocks by
+    reference. fp32 and int8 (scale ids permuted on both sides)."""
+    cuda = torch.device(device).type == "cuda"
+    params = params_to(init_params(cfg, torch.Generator().manual_seed(1),
+                                   "cpu"), device)
+    make = lambda kv: PagedTransformerExecutor(
+        cfg, params, kv_dtype=kv, device=device, **MIGRATION_PAGES)
+    page = MIGRATION_PAGES["page_size"]
+    rng = np.random.default_rng(2)
+    prefix = [int(x) for x in rng.integers(0, cfg.vocab, 2 * page)]
+
+    def four():
+        return make_requests(cfg, 4, (40, 200), 8, 0.0, seed=4)
+
+    def pair():
+        reqs = make_requests(cfg, 2, (20, 40), 6, 0.0, seed=6)
+        for r in reqs:
+            r.tokens = prefix + [(100 + r.req_id) % cfg.vocab] + r.tokens
+            r.prompt_len = len(r.tokens)
+        return reqs
+
+    recs = []
+    for kv in ("fp32", "int8"):
+        def run():
+            oracle = never_migrated(make(kv), four(), MIGRATION_CHUNK)
+            src, dst = make(kv), make(kv)
+            if kv != "fp32":
+                for ex, seed in ((src, 1), (dst, 2)):
+                    np.random.default_rng(seed).shuffle(ex.alloc._free_scales)
+            moved = migrating_run(src, dst, four(), {0: 1, 1: 3, 2: 5, 3: 2},
+                                  MIGRATION_CHUNK, recompute={3})
+            pair_oracle = never_migrated(make(kv), pair(), MIGRATION_CHUNK)
+            dst = make(kv)
+            cache = PrefixCache(32, block_size=page, alloc=dst.alloc)
+            dst.attach_cache(cache)
+            warm = pair()[0]
+            warm.req_id = 10_000
+            world = {warm.req_id: warm}
+            while fixed_step(dst, world, list(world), MIGRATION_CHUNK):
+                pass
+            cache.insert_request(warm.req_id, warm.tokens, 0.0)
+            cache.end_request(warm.req_id)
+            dst.release(warm.req_id)
+            reqs = pair()
+            by_ref = migrating_run(make(kv), dst, reqs, {0: 2, 1: 4},
+                                   MIGRATION_CHUNK, cache=cache)
+            return oracle, moved, pair_oracle, by_ref, reqs
+
+        (oracle, moved, pair_oracle, by_ref, reqs), launches = _counted(
+            cuda, run)
+        kv_moves = [m for m in moved["moves"] + by_ref["moves"]
+                    if m["mode"] == "kv"]
+        want_ref = [reqs[0].prompt_len // page, len(prefix) // page]
+        got_ref = [m["ref_pages"] for m in by_ref["moves"]]
+        per_page = kv_moves[0]["bytes"] // kv_moves[0]["pages"]
+        rec = {"kv_dtype": kv, "moves": len(moved["moves"]
+                                            + by_ref["moves"]),
+               "streams_equal": moved["tokens"] == oracle,
+               "by_reference_streams_equal": by_ref["tokens"] == pair_oracle,
+               "pages_equal": all(m["pages_equal"] for m in kv_moves),
+               "ref_pages": got_ref, "expected_ref_pages": want_ref,
+               "payload_bytes": [m["bytes"] for m in by_ref["moves"]],
+               "wire_bytes": [m["wire_bytes"] for m in by_ref["moves"]],
+               "launches": launches}
+        _emit("migration_parity", rec)
+        recs.append(rec)
+        ok = (rec["streams_equal"] and rec["by_reference_streams_equal"]
+              and rec["pages_equal"] and got_ref == want_ref
+              # the leading blocks moved by reference: 0 bytes copied
+              and all(m["wire_bytes"] == (m["pages"] - m["ref_pages"])
+                      * per_page for m in by_ref["moves"]))
+        if not ok:
+            raise AssertionError(f"migration parity {kv}: streams, pages or "
+                                 f"reference transfers disagree")
+    return recs
+
+
+CACHED_SERVE_CAPACITY = 512
+# 5f (iii): 168 pages make preemption fire on the model clock; at 160 and
+# fewer the engine stops on its KV-deadlock error (ROADMAP §C), at 176 and
+# more nothing is deferred
+PREEMPT_SERVE_PAGES = dict(SERVE_PAGES, num_pages=168)
+
+
+def cached_serve_requests(cfg) -> list:
+    """Phase 5f's traffic: the first 64 requests of a shared-sysprompt
+    trace, prompts cut at 3072 tokens, 32 new tokens, arriving as traced."""
+    return scenario_requests(cfg, "shared-sysprompt", rps=8.0, duration=8.0,
+                             seed=3, n=64, new_tokens=32, max_prompt=3072,
+                             slo=(10.0, 0.25))
+
+
+def phase_cached_serve(cfg, device, params) -> list:
+    """Phase 5f: the full-depth model serves 5f's traffic with no cache,
+    with a 512-page ``PrefixCache``, and with the cache and preemption on a
+    pool cut to 168 pages. The third run is on the model clock: its plans,
+    and so its preemptions, then depend on nothing the device does."""
+    cuda = torch.device(device).type == "cuda"
+    workloads = [("no_cache", SERVE_PAGES, {}),
+                 ("cache", SERVE_PAGES,
+                  dict(cache_pages=CACHED_SERVE_CAPACITY)),
+                 ("cache_preemption", PREEMPT_SERVE_PAGES,
+                  dict(cache_pages=CACHED_SERVE_CAPACITY, preemption=True,
+                       clock=MODEL_CLOCK))]
+    recs, base = [], None
+    for name, pages, kw in workloads:
+        if cuda:
+            _release_memory()
+            torch.cuda.reset_peak_memory_stats()
+        reqs = cached_serve_requests(cfg)
+        run = serve(cfg, params, device, reqs, **pages, **kw)
+        _check_outputs(run, cfg, 32)
+        cache = run.eng.prefix_cache
+        _check_pages(run.ex, cache)
+        rec = {"workload": name, **_serve_record(run, reqs, cfg, cuda),
+               "num_pages": pages["num_pages"],
+               "attention_launches": run.launches["paged_attention_ragged"],
+               "expected_attention_launches": cfg.n_layers
+               * run.ex.n_dispatches,
+               "preemptions": run.eng.preemptions,
+               "defer_events": run.eng.defer_events,
+               "clock": "model" if "clock" in kw else "wall"}
+        if cache is not None:
+            rec.update(cached_tokens=cache.stats.hit_tokens,
+                       hit_rate=cache.stats.hit_rate,
+                       hit_requests=cache.stats.hit_requests,
+                       evicted_pages=cache.stats.evicted_pages)
+        if base is None:
+            base = run.tokens
+        else:
+            rec["share_tokens_equal_no_cache"] = _share_equal(run.tokens,
+                                                              base)
+        _emit("cached_serve", rec)
+        recs.append(rec)
+        if (rec["attention_launches"] != rec["expected_attention_launches"]
+                or (cache is not None and rec["cached_tokens"] == 0)
+                or (kw.get("preemption") and rec["preemptions"] == 0)):
+            raise AssertionError(f"{name}: launches, cache hits or "
+                                 f"preemptions missing")
+        del run
+    return recs
+
+
+MIGRATE_SERVE_PAGES = dict(SERVE_PAGES, num_pages=512)
+MIGRATE_SERVE_CHUNK = 512
+
+
+def phase_migrate_serve(cfg, device, params) -> list:
+    """Phase 5g: phase 5's 16 prompts (256-3072 tokens, 32 new tokens) run
+    on a source executor for their prefill and 4 decode steps (5 tokens),
+    move by KV to a second executor on the card (the same weights, 512
+    pages each), which runs the other 27 steps; fp32 and int8, fixed
+    plans. Every installed page equals the payload byte for byte; every
+    request finishes. Reports each move's capture and install times, bytes
+    and rates, and the share of tokens equal to a never-migrated run."""
+    cuda = torch.device(device).type == "cuda"
+    make = lambda kv: PagedTransformerExecutor(
+        cfg, params, kv_dtype=kv, device=device, **MIGRATE_SERVE_PAGES)
+    reqs = lambda: make_requests(cfg, 16, (256, 3072), 32, 0.0, seed=3,
+                                 slo=(10.0, 0.25))
+    recs = []
+    for kv in ("fp32", "int8"):
+        if cuda:
+            _release_memory()
+        oracle, launches_ref = _counted(cuda, lambda: never_migrated(
+            make(kv), reqs(), MIGRATE_SERVE_CHUNK))
+        if cuda:
+            _release_memory()
+            torch.cuda.reset_peak_memory_stats()
+        src, dst = make(kv), make(kv)
+        moved, launches = _counted(cuda, lambda: migrating_run(
+            src, dst, reqs(), {i: 5 for i in range(16)}, MIGRATE_SERVE_CHUNK,
+            timed=cuda))
+        del src, dst
+        finished = all(len(t) == 32 and all(0 <= x < cfg.vocab for x in t)
+                       for t in moved["tokens"].values())
+        moves = moved["moves"]
+        for m in moves:
+            _emit("migrate_serve_move", {"kv_dtype": kv, **m})
+        rec = {"kv_dtype": kv, "moves": len(moves),
+               "pages_equal": all(m["pages_equal"] for m in moves),
+               "finished": finished,
+               "bytes": sum(m["bytes"] for m in moves),
+               "share_tokens_equal_never_migrated": _share_equal(
+                   moved["tokens"], oracle),
+               "launches": launches, "oracle_launches": launches_ref,
+               "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                              if cuda else None)}
+        if cuda:
+            for key in ("capture_ms", "install_ms", "d2h_gb_per_s",
+                        "h2d_gb_per_s"):
+                rec[key + "_median"] = statistics.median(m[key]
+                                                         for m in moves)
+        _emit("migrate_serve", rec)
+        recs.append(rec)
+        if not (rec["pages_equal"] and finished and len(moves) == 16):
+            raise AssertionError(f"migrate serve {kv}: pages differ after "
+                                 f"install, or a request did not finish")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1792,6 +2377,9 @@ def main() -> int:
     _release_memory()
     phase_ssm_parity(dataclasses.replace(get("mamba2-1.3b"), n_layers=2),
                      "cuda")
+    _release_memory()
+    phase_cache_parity(small, "cuda")
+    phase_migration_parity(small, "cuda")
     cfg = get("h2o-danube-1.8b")
     _release_memory()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1805,6 +2393,8 @@ def main() -> int:
     _, decode16_tokens = phase_serve_paths(cfg, "cuda", params,
                                            serve16_tokens)
     phase_quant_serve(cfg, "cuda", params, serve16_tokens, decode16_tokens)
+    phase_cached_serve(cfg, "cuda", params)
+    phase_migrate_serve(cfg, "cuda", params)
     del params
     _release_memory()
     mix = dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_SERVE_LAYERS)

@@ -33,9 +33,12 @@
   The time a step returns ends after the device finished it (the copy of its
   tokens to the host synchronizes).
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding,
-``attach_cache`` (the prefix cache) and speculative decode on a MoE
-target. The SSM and hybrid families are refused as the JAX executor
+A ``cache.PrefixCache`` built on the executor's allocator attaches with
+``attach_cache``: cache hits fork shared pages into a request's table, and
+an extend that runs out of pages evicts cached pages and retries.
+
+Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding and
+speculative decode on a MoE target. The SSM and hybrid families are refused as the JAX executor
 refuses them: the SSM family runs through ``models.lm.DecoderLM``.
 """
 from __future__ import annotations
@@ -360,6 +363,8 @@ class PagedTransformerExecutor:
         # items the last execute() could not serve (out of KV blocks); the
         # engine skips their progress so the scheduler retries them
         self.last_deferred: frozenset[int] = frozenset()
+        # the prefix cache (DESIGN.md §10), wired by attach_cache()
+        self.prefix_cache = None
         # opt-in test/bench introspection: req_id -> np logits of the last
         # step. Off by default — the extra device→host logits copy would
         # land inside the wall-clock the §3.2 calibration observes.
@@ -577,14 +582,24 @@ class PagedTransformerExecutor:
     # ------------------------------------------------------------------
 
     def attach_cache(self, prefix_cache) -> None:
-        raise _later("the prefix cache", "queue A9")
+        """Wire a ``PrefixCache`` built on this executor's allocator."""
+        assert prefix_cache.alloc is self.alloc, \
+            "prefix cache must share the executor's BlockAllocator"
+        self.prefix_cache = prefix_cache
 
     def _extend(self, req_id: int, n_tokens: int, *,
                 mirror_cow: bool = True) -> Optional[list]:
-        """Allocator extend; COW page copies are mirrored into the device
-        K/V per call unless ``mirror_cow=False`` (the fused path drains the
-        whole step's events in one batched copy — ``_mirror_cow_batched``)."""
+        """Allocator extend with prefix-cache eviction under pressure.
+
+        COW page copies are mirrored into the device K/V (and scale) pools
+        per call unless ``mirror_cow=False`` (the fused path drains the
+        whole step's events in one batched copy — ``_mirror_cow_batched``).
+        """
         tbl = self.alloc.extend(req_id, n_tokens)
+        if tbl is None and self.prefix_cache is not None:
+            self.prefix_cache.evict_for(
+                self.alloc.blocks_needed(req_id, n_tokens) + 1)
+            tbl = self.alloc.extend(req_id, n_tokens)
         if mirror_cow:
             self._mirror_cow_batched()
         return tbl

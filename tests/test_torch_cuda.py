@@ -45,6 +45,14 @@ initial state, and repeats bitwise; it writes every row of an output
 that starts as NaN; the reduced
 mamba2-1.3b ``DecoderLM`` on the card gives the CPU's greedy tokens, B5
 launching once per layer per prefill and never in a decode step.
+With a ``PrefixCache`` attached, the reduced h2o-danube-1.8b's fused
+executor on the card gives the CPU's tokens and cached-token count over
+shared-prefix requests on the model clock (fp32 and int8); a victim
+evicted off a COW survivor's shared pages leaves the survivor's stream
+that of a run without preemption; and KV pages migrated between two
+executors on the card are the captured payload byte for byte (scale
+pages too, at permuted scale ids), with the streams of a run that never
+migrated (fp32, int8, fp8-e4m3).
 """
 import dataclasses
 
@@ -52,17 +60,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cache import PrefixCache
 from repro_torch.configs import MoEConfig, get_reduced
-from repro_torch.core import LinearCostModel, make_scheduler
+from repro_torch.core import (BatchItem, BatchPlan, LinearCostModel,
+                              TaskKind, make_scheduler)
+from repro_torch.disagg.migration import capture_kv, install_kv_pages
 from repro_torch.engine import (Engine, EngineConfig,
-                                PagedTransformerExecutor, Request)
+                                PagedTransformerExecutor, Request,
+                                RequestState)
 from repro_torch.engine.numerics import ModelTimedExecutor
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
 from repro_torch.kernels.mamba2_scan import mamba_chunk_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
-from repro_torch.kernels.quant import kv_quant_spec, quantize_kv
+from repro_torch.kernels.quant import (kv_quant_spec, quantize_kv, raw_pool,
+                                      supports_fp8)
 from repro_torch.kernels.ref import (mamba_chunk_scan_ref, moe_gmm_ref,
                                      paged_attention_ragged_quant_ref,
                                      paged_attention_ragged_ref,
@@ -955,3 +968,182 @@ def test_ssm_decoder_card_matches_cpu(cuda, slen):
     assert float((lg_g - lg_c).abs().max()) < tol
     assert pre_g == all_g == cfg.n_layers
     assert pre_c == all_c == 0
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache, preemption and KV migration on the card
+# ---------------------------------------------------------------------------
+
+CLOCK = LinearCostModel(a=1e-3, b=1e-4, c=0.0)
+
+
+def _shared_prefix_prompts(vocab, seed=5):
+    rng = np.random.default_rng(seed)
+    shared = [int(x) for x in rng.integers(0, vocab, 48)]
+    return [shared + [int(x) for x in rng.integers(0, vocab, n)]
+            for n in (5, 19, 3, 5)]
+
+
+def _cached_engine(cfg, params, dev, kv_dtype, *, preemption=False,
+                   cache_pages=16):
+    ex = PagedTransformerExecutor(cfg, params, num_pages=64, page_size=16,
+                                  max_pages_per_seq=8, kv_dtype=kv_dtype,
+                                  capture_logits=True, device=dev)
+    cache = PrefixCache(cache_pages, block_size=16, alloc=ex.alloc)
+    ex.attach_cache(cache)
+    eng = Engine(make_scheduler("fairbatching", CLOCK, calibrate=False),
+                 ModelTimedExecutor(ex, CLOCK),
+                 EngineConfig(5.0, 5.0, preemption=preemption,
+                              defer_age=0.01), prefix_cache=cache)
+    return eng, ex, cache
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_cached_prefill_card_matches_cpu(cuda, kv_dtype):
+    """Shared-prefix requests through the cache on the model clock: the
+    card's tokens, cached tokens and plans are the CPU's; the attention
+    kernel launches once per layer per dispatch on the card."""
+    cfg = get_reduced("h2o-danube-1.8b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kern = (paged_attention_ragged_quant if kv_dtype != "fp32"
+            else paged_attention_ragged)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng, ex, cache = _cached_engine(cfg, params, dev, kv_dtype)
+        for i, p in enumerate(_shared_prefix_prompts(cfg.vocab)):
+            eng.submit(Request(i, arrival=0.05 * i, prompt_len=len(p),
+                               max_new_tokens=6, ttft_slo=5.0, tpot_slo=5.0,
+                               tokens=p))
+        before, first = kern.launches, {}
+        while eng.has_work:
+            eng.step()
+            for rid, lg in ex.last_logits.items():
+                first.setdefault(rid, lg)
+        ex.alloc.check_invariants()
+        runs[dev] = ({r: q.generated_tokens for r, q in eng.requests.items()},
+                     first, cache.stats.hit_tokens, kern.launches - before,
+                     ex.n_dispatches)
+    (tok_g, lg_g, hit_g, n_g, d_g), (tok_c, lg_c, hit_c, n_c, _) = \
+        runs["cuda"], runs["cpu"]
+    assert tok_g == tok_c
+    assert hit_g == hit_c > 0
+    tol = ATOL if kv_dtype == "fp32" else ATOL_QUANT_LOGITS
+    for rid in lg_c:
+        np.testing.assert_allclose(lg_g[rid], lg_c[rid], atol=tol, rtol=0)
+    assert n_c == 0 and n_g == cfg.n_layers * d_g
+
+
+def test_preempted_victim_leaves_survivor_stream_on_card(cuda):
+    """A victim forked onto a survivor's cached pages is evicted mid-decode
+    and recomputes its tail; the survivor's pages are untouched and both
+    streams are those of the run without the preemption."""
+    cfg = get_reduced("h2o-danube-1.8b")
+    params = params_to(init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu"), cuda)
+    prompts = _shared_prefix_prompts(cfg.vocab)[:2]
+    out = []
+    for preempt in (False, True):
+        eng, ex, _ = _cached_engine(cfg, params, cuda, "fp32",
+                                    preemption=True, cache_pages=8)
+        eng.submit(Request(0, 0.0, len(prompts[0]), 12, 5.0, 5.0,
+                           tokens=prompts[0]))
+        while eng.requests.get(0) is None or \
+                eng.requests[0].prefilled < len(prompts[0]):
+            eng.step()
+        eng.submit(Request(1, eng.now, len(prompts[1]), 12, 5.0, 5.0,
+                           tokens=prompts[1]))
+        while eng.requests.get(1) is None or eng.requests[1].generated < 3:
+            eng.step()
+        table = list(ex.alloc.tables[0])
+        assert any(ex.alloc.refcount[p] > 1 for p in table)
+        pages = ex.k_pages[:, table].clone()
+        if preempt:
+            eng._preempt(eng.requests[1])
+            assert ex.alloc.tables[0] == table
+            assert torch.equal(ex.k_pages[:, table], pages)
+            assert eng.requests[1].cached_context > 0
+        eng.run(max_steps=500)
+        ex.alloc.check_invariants()
+        out.append(([eng.requests[i].generated_tokens for i in (0, 1)],
+                    eng.preemptions))
+    assert out[1][1] == 1 and out[0][1] == 0
+    assert out[1][0] == out[0][0]
+
+
+def _fixed_step(ex, world, owned):
+    items = []
+    for rid in owned:
+        r = world[rid]
+        if r.active:
+            items.append(BatchItem(rid, 1, TaskKind.DECODE)
+                         if r.state is RequestState.DECODE else
+                         BatchItem(rid, min(16, r.prompt_len - r.prefilled),
+                                   TaskKind.PREFILL))
+    if not items:
+        return False
+    plan = BatchPlan(items, 0.0, 0.0, 0, 0)
+    _, emitted = ex.execute(plan, world, 0.0)
+    assert not ex.last_deferred
+    for it in items:
+        if it.req_id in emitted:
+            world[it.req_id].generated_tokens.append(emitted[it.req_id])
+        world[it.req_id].advance(it.n_tokens, 0.0)
+    return True
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8_e4m3"])
+def test_migrated_pages_bitwise_on_card(cuda, kv_dtype):
+    """Fixed plans on two card executors sharing weights: each request
+    moves by KV at its own decode count; the installed pages (and scale
+    pages, at permuted scale ids) are the payload byte for byte, and the
+    streams are those of a card run that never migrated."""
+    if kv_dtype == "fp8_e4m3" and not supports_fp8(cuda):
+        pytest.skip("the card's torch has no float8_e4m3fn")
+    cfg = get_reduced("h2o-danube-1.8b")
+    params = params_to(init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu"), cuda)
+    make = lambda: PagedTransformerExecutor(
+        cfg, params, num_pages=64, page_size=16, max_pages_per_seq=8,
+        kv_dtype=kv_dtype, device=cuda)
+    lens = (23, 41, 60)
+
+    def world():
+        r = np.random.default_rng(7)
+        return {i: Request(i, 0.0, n, 7, 5.0, 5.0, tokens=[
+            int(x) for x in r.integers(0, cfg.vocab, n)])
+            for i, n in enumerate(lens)}
+
+    oracle, ex = world(), make()
+    while _fixed_step(ex, oracle, list(oracle)):
+        pass
+    src, dst = make(), make()
+    for a, seed in ((src, 1), (dst, 2)):
+        np.random.default_rng(seed).shuffle(a.alloc._free_scales)
+    moved, owner = world(), {i: "src" for i in range(len(lens))}
+    at = {0: 1, 1: 3, 2: 5}
+    while any(r.active for r in moved.values()):
+        _fixed_step(src, moved, [i for i, o in owner.items() if o == "src"])
+        _fixed_step(dst, moved, [i for i, o in owner.items() if o == "dst"])
+        for rid, r in moved.items():
+            if (owner[rid] == "src" and r.active and r.generated >= at[rid]
+                    and r.state is RequestState.DECODE):
+                payload = capture_kv(src, rid)
+                src.release(rid)
+                assert install_kv_pages(dst, None, r, payload, 0.0) == 0
+                owner[rid] = "dst"
+                idx = torch.as_tensor(dst.alloc.tables[rid], device=cuda)
+                sidx = torch.as_tensor(dst.alloc.scale_table(rid),
+                                       device=cuda)
+                for pool, rows in ((dst.k_pages, payload.k),
+                                   (dst.v_pages, payload.v)):
+                    assert np.array_equal(
+                        raw_pool(pool)[:, idx].cpu().numpy(), rows)
+                if payload.k_scales is not None:
+                    assert np.array_equal(
+                        dst.k_scales[:, sidx].cpu().numpy(), payload.k_scales)
+                    assert np.array_equal(
+                        dst.v_scales[:, sidx].cpu().numpy(), payload.v_scales)
+                src.alloc.check_invariants()
+                dst.alloc.check_invariants()
+    assert {r: q.generated_tokens for r, q in moved.items()} == \
+        {r: q.generated_tokens for r, q in oracle.items()}

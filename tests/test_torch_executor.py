@@ -25,6 +25,7 @@ import repro_torch.engine as teng
 from repro.configs import get_reduced
 from repro.engine import numerics as jnum
 from repro.models import ModelOpts, build_model
+from repro_torch.cache import PrefixCache
 from repro_torch.configs import get_reduced as torch_get_reduced
 from repro_torch.engine import numerics as tnum
 from repro_torch.engine.spec_decode import TruncatedSelfDraft
@@ -193,9 +194,10 @@ def test_decode_defers_when_out_of_blocks(setups):
 
 
 def test_unported_options_raise(setups):
-    """Mesh sharding and the prefix cache are later slices and raise;
-    sequential mode, multi-step decode, the draft hook and quantized KV
-    work, and an unknown kv_dtype raises."""
+    """Mesh sharding is a later slice and raises; sequential mode,
+    multi-step decode, the draft hook, quantized KV and a prefix cache on
+    the executor's own allocator work, a cache on another allocator is
+    refused, and an unknown kv_dtype raises."""
     cfg, tcfg, _, tparams = setups["stablelm-3b"]
     with pytest.raises(NotImplementedError):
         teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
@@ -213,8 +215,12 @@ def test_unported_options_raise(setups):
     assert q8.k_scales.shape == q8.k_pages.shape[:-1]
     ex = teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
                                        num_pages=8, page_size=4)
-    with pytest.raises(NotImplementedError):
-        ex.attach_cache(object())
+    with pytest.raises(AssertionError, match="share the executor"):
+        ex.attach_cache(PrefixCache(4, block_size=4))
+    assert ex.prefix_cache is None
+    cache = PrefixCache(4, block_size=4, alloc=ex.alloc)
+    ex.attach_cache(cache)
+    assert ex.prefix_cache is cache
     assert callable(ex.execute_multi)     # the engine's one-dispatch paths
     draft = TruncatedSelfDraft(1)
     ex.set_draft(draft)

@@ -43,15 +43,48 @@ def test_port_imports_with_jax_absent():
 
 def test_guard_covers_every_slice():
     """The scans walk the package, so each slice's modules are in them:
-    the MoE slice's model, kernel wrapper and configs included."""
+    the MoE slice's model, kernel wrapper and configs included, and the
+    prefix cache, replay, cluster, fault plane and disaggregation."""
     mods = _submodules()
     for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.mixtral_8x7b",
               "repro_torch.configs.kimi_k2_1t_a32b",
-              "repro_torch.kernels.paged_attention", "repro_torch.engine"):
+              "repro_torch.kernels.paged_attention", "repro_torch.engine",
+              "repro_torch.cache", "repro_torch.cache.radix",
+              "repro_torch.cache.prefix_cache", "repro_torch.data.traces",
+              "repro_torch.chaos.executor", "repro_torch.sim.replay",
+              "repro_torch.cluster.cluster",
+              "repro_torch.cluster.load_balancer",
+              "repro_torch.disagg.migration", "repro_torch.disagg.router",
+              "repro_torch.disagg.pools"):
         assert m in mods, m
     assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
-                                            "chip_smoke.py"}
+                                            "chip_smoke.py", "migration.py"}
+
+
+def test_cluster_and_disagg_import_and_replay_with_jax_absent():
+    """``import repro_torch.cluster, repro_torch.disagg`` and a replay of
+    the cluster layer need neither JAX nor the JAX package."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import repro_torch.cluster, repro_torch.disagg\n"
+            "from repro_torch.data.traces import make_scenario\n"
+            "from repro_torch.sim import replay\n"
+            "t = make_scenario('shared-sysprompt', rps=4.0, duration=2.0,\n"
+            "                  seed=0)\n"
+            "r = replay(t, 'fairbatching', n_ranks=2, lb='cache',\n"
+            "           prefix_cache_pages=64, seed=1)\n"
+            "assert len(r.metrics) == len(t)\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m])\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(REPO / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def _bad_imports(source: str, depth: int) -> list[str]:
