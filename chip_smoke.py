@@ -93,7 +93,9 @@ nothing of the JAX package. Phases, each printing its own lines:
    need: CBᵀ on the L(L+1)/2 pairs j ≤ i once per batch and chunk (B and
    C are shared by the heads), per head and chunk the masked scores
    times X on the same pairs, the chunk's own state (L·N·P FMAs) and,
-   where a nonzero state is carried in, C · state (L·N·P).
+   where a nonzero state is carried in, C · state (L·N·P). Then (h) the
+   same checks at zamba2-2.7b's heads (H=80, P=64, N=64), B=8 × 2048
+   tokens: phase 5h's prefill shape.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -129,6 +131,30 @@ nothing of the JAX package. Phases, each printing its own lines:
    ``decode_step``s on the card and on the CPU: tokens equal, first
    logits within 1e-3; B5 launched n_layers times in the prefill and
    never in decode, no other kernel.
+4h. MoE speculation (ROADMAP A11) — mixtral-8x7b at every published
+   width with 2 layers, the port's own weights (seed 1), 4 requests of
+   8-64 prompt tokens and 8 new tokens on fixed plans (chunks of 16, then
+   speculative dispatches of 2 rounds, γ=3, ``TruncatedSelfDraft(1)``),
+   under ``moe_impl="exact"`` and ``"capacity"``, on the card and on the
+   CPU. Gates: tokens and accept/draft counters equal on card and CPU;
+   under exact the tokens equal the card's non-speculative run on the
+   same plans (under capacity the verify pass packs B·(γ+1) rows, so the
+   drops and the tokens may follow the packing: the share is reported);
+   B3 launches 2 × (γ + n_layers) a speculative dispatch, B1 n_layers a
+   fused step, B4 three per layer and router chunk of every forward pass
+   under capacity and never under exact; every speculative dispatch runs
+   under the sync check.
+4i. DecoderLM families — each newly ported family at every published
+   width, depth cut: zamba2-2.7b (6 layers: one shared-block
+   application), gemma3-1b (6: five local layers, one global), pixtral-12b
+   (2, ``embeds`` input), deepseek-67b (2), mixtral-8x7b (2, capacity and
+   exact) and stablelm-3b (2); one prompt of 1024 tokens (1536 for gemma3:
+   past its 512-token window, into the banded path), the port's own
+   weights (seed 1), ``DecoderLM.prefill`` plus 8 greedy ``decode_step``s
+   on the card and on the CPU. Gates: first logits within 1e-3, tokens
+   equal, B5 once per Mamba2 block in the prefill and never in decode, B4
+   in prefill and decode under capacity only, no other kernel. Each
+   record lists its depth cut under ``reduced``.
 4f. prefix cache and preemption parity — phase 4's model and weights
    serve the first 8 requests of ``make_scenario("shared-sysprompt",
    rps=8.0, duration=2.0, seed=0)`` (tokens mod vocab, prompts cut at 640
@@ -216,11 +242,24 @@ nothing of the JAX package. Phases, each printing its own lines:
    times per prefill, at a shape phase 3e checked, and never in decode.
    Reports the prefill's seconds and tokens/s, the decode step's median
    host ms, output tokens/s, peak memory, B5's launches and shape.
+5h. hybrid serving — zamba2-2.7b at full depth and width (54 Mamba2
+   blocks, 9 applications of the shared attention block; 9.7 GB of fp32
+   weights, seed 0) through ``DecoderLM.prefill`` plus greedy
+   ``decode_step``s: B=8 prompts of 2048 tokens, then 64 steps. Gates:
+   every token in [0, vocab); B5 launched 54 times per prefill at the
+   shape phase 3e (h) checked and never in decode; each shared block's
+   ring holds positions 0..S+steps-1. Reports 5e's numbers plus one more
+   prefill's device ms by ``torch.profiler`` and B5's share of them.
+5i. local:global serving — gemma3-1b at full depth and width (26 layers,
+   5.2 GB of fp32 weights, seed 0), 5h's workload. Gates: every token in
+   [0, vocab); each local layer's ring holds exactly the last 512
+   positions, each global layer's all of them. Reports 5h's numbers.
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
-4c, 4d, 4e, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e (B1 and B2 launch in 4f,
-4g, 5f and 5g); B1's times at step (a), pages of 128,
+4c, 4d, 4h, 4e, 4i, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h (B1 and B2
+launch in 4f, 4g, 5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i); B1's
+times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
 of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
@@ -228,7 +267,8 @@ of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
 most, with the gate/up shape of the largest capacity 5d launched as
 ``prefill_*``; ``*graph_ms`` are device times alone, by CUDA-graph
 replay; B5's at 5e (i)'s shape from a zero state, with 5e (ii)'s as
-``long_*``), and the card's name and power limit.
+``long_*`` and 3e (h)'s, 5h's prefill shape, as ``hybrid_*``), and the
+card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -237,6 +277,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import pathlib
@@ -278,7 +319,7 @@ from repro_torch.kernels.quant import (  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     mamba_chunk_scan_ref, moe_gmm_ref, paged_attention_ragged_quant_ref,
     paged_attention_ragged_ref, paged_attention_ref)
-from repro_torch.models.lm import DecoderLM  # noqa: E402
+from repro_torch.models.lm import DecoderLM, ModelOpts  # noqa: E402
 from repro_torch.models.moe import (  # noqa: E402
     _capacity, chunk_capacity, router_chunks)
 from repro_torch.models.weights import init_params, params_to  # noqa: E402
@@ -950,6 +991,8 @@ def phase_moe_kernels(device, timer, steps=None) -> list:
 # (ii)'s shapes, then a prompt shorter than the chunk
 SSM_STEPS = (("l_b8_s2048", 8, 2048), ("m_b1_s32768", 1, 32768),
              ("n_b8_s100", 8, 100))
+# phase 3e at zamba2-2.7b's heads (H 80, P 64, N 64): 5h's prefill shape
+HYBRID_SSM_STEPS = (("h_b8_s2048", 8, 2048),)
 
 
 def scan_shape(cfg, batch: int, prompt: int) -> tuple:
@@ -1680,38 +1723,42 @@ def phase_moe_serve(cfg, device, *, params=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 4e, 5e: the SSM family through DecoderLM
+# DecoderLM's main path: prefill, then greedy decode steps
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class Generated:
     """One ``prefill`` plus greedy ``decode_step``s: tokens (B, steps + 1),
     the prefill's logits, host seconds of the prefill and of each step,
-    and each kernel's launches in the prefill and in the decode steps."""
+    each kernel's launches in the prefill and in the decode steps, and the
+    cache after the last step."""
     tokens: np.ndarray
     first: np.ndarray
     prefill_s: float
     step_s: list
     prefill_launches: dict
     decode_launches: dict
+    cache: dict
 
 
-def generate(cfg, params, device, prompts: np.ndarray, steps: int
-             ) -> Generated:
-    """The SSM family's main path: ``DecoderLM.prefill`` then ``steps``
-    greedy ``decode_step``s, each ending on its tokens' copy to the host,
-    as a serving loop checks for a stop token. Every kernel count is set
-    to 0 just before and read just after the prefill and the decode
+def generate(cfg, params, device, prompts: np.ndarray, steps: int,
+             opts: Optional[ModelOpts] = None) -> Generated:
+    """``DecoderLM``'s main path: ``prefill`` then ``steps`` greedy
+    ``decode_step``s, each ending on its tokens' copy to the host, as a
+    serving loop checks for a stop token. ``prompts`` holds token ids (B,
+    S), or embeddings (B, S, d) for a VLM backbone. Every kernel count is
+    set to 0 just before and read just after the prefill and the decode
     steps; launches on the card add to ``SERVING_LAUNCHES``."""
-    model = DecoderLM(cfg, device=device)
-    toks = torch.as_tensor(prompts, device=model.device)
+    model = DecoderLM(cfg, opts, device=device)
+    x = torch.as_tensor(prompts, device=model.device)
+    inputs = {"embeds": x} if x.is_floating_point() else x
     cuda = model.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
     for k in KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, toks, prompts.shape[1] + steps)
+    logits, cache = model.prefill(params, inputs, prompts.shape[1] + steps)
     tok = logits.argmax(-1)
     out = [tok.cpu()]
     prefill_s = time.perf_counter() - t0
@@ -1731,47 +1778,287 @@ def generate(cfg, params, device, prompts: np.ndarray, steps: int
         for name in KERNELS:
             SERVING_LAUNCHES[name] += pre[name] + dec[name]
     return Generated(torch.stack(out, 1).numpy(), first, prefill_s, step_s,
-                     pre, dec)
+                     pre, dec, cache)
 
 
-def _ssm_launches_ok(run: Generated, cfg, cuda: bool) -> bool:
-    """B5 n_layers times in the prefill and never in decode; no other
-    kernel anywhere (on the CPU nothing launches)."""
-    want = cfg.n_layers if cuda else 0
-    others = [n for n in KERNELS if n != "mamba2_scan"]
-    return (run.prefill_launches["mamba2_scan"] == want
-            and run.decode_launches["mamba2_scan"] == 0
-            and all(run.prefill_launches[n] == run.decode_launches[n] == 0
-                    for n in others))
+# ---------------------------------------------------------------------------
+# phase 4h: speculative decode on a MoE target (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA, SPEC_ROUNDS = 3, 2
 
 
-def phase_ssm_parity(cfg, device, prompt_len=300, steps=8) -> dict:
-    """Phase 4e on ``cfg`` (mamba2-1.3b at full width, depth cut): the
-    port's own weights (seed 1), 2 prompts of ``prompt_len`` tokens, then
-    ``steps`` greedy decode steps, on ``device`` and on the CPU."""
+@dataclasses.dataclass
+class SpecRun:
+    """One run on fixed plans: tokens by request, drafts accepted and
+    drafted, speculative and fused dispatches, each kernel's launches, and
+    the (token rows, layers) of every forward pass."""
+    tokens: dict
+    accepted: int
+    drafted: int
+    spec_dispatches: int
+    fused_dispatches: int
+    launches: dict
+    forwards: list
+
+
+def spec_plans_run(cfg, params, device, requests, *, moe_impl: str,
+                   gamma: int, draft_layers: int = 1,
+                   chunk: int = 16) -> SpecRun:
+    """``fixed_step``'s plans (chunks of ``chunk``, decode items alongside)
+    until every active request decodes; then, with ``gamma`` > 0,
+    speculative dispatches of ``SPEC_ROUNDS`` rounds over all of them with
+    a ``TruncatedSelfDraft(draft_layers)`` (``gamma`` = 0: plain decode
+    steps, the non-speculative run on the same plans). The plans depend on
+    nothing the device computes; on the card every speculative dispatch
+    runs under the sync check."""
     cuda = torch.device(device).type == "cuda"
+    ex = PagedTransformerExecutor(cfg, params, moe_impl=moe_impl,
+                                  device=device, **PARITY_PAGES)
+    if gamma:
+        ex.set_draft(TruncatedSelfDraft(draft_layers))
+    forwards: list = []
+    _record_forwards(ex, forwards)
+    if cuda:
+        ex._spec_multi_step = _no_sync(ex._spec_multi_step)
+    world = {r.req_id: r for r in requests}
+    counts = {"accepted": 0, "drafted": 0, "spec": 0}
+
+    def loop() -> None:
+        while any(r.active for r in world.values()):
+            active = [r for r in world.values() if r.active]
+            if gamma and all(r.state is RequestState.DECODE for r in active):
+                plan = BatchPlan([BatchItem(r.req_id, 1, TaskKind.DECODE)
+                                  for r in active], 0.0, 0.0, 0, 0)
+                _, rounds = ex.execute_multi(plan, world, 0.0, SPEC_ROUNDS,
+                                             speculate=gamma)
+                if ex.last_deferred:
+                    raise AssertionError("pool sized to never defer")
+                counts["accepted"] += ex.last_spec_accepted
+                counts["drafted"] += ex.last_spec_drafted
+                counts["spec"] += 1
+                for em in rounds:
+                    for rid, toks in em.items():
+                        if toks:
+                            world[rid].generated_tokens.extend(toks)
+                            world[rid].advance(len(toks), 0.0)
+            else:
+                fixed_step(ex, world, list(world), chunk)
+            for r in world.values():
+                if not r.active:
+                    ex.release(r.req_id)
+
+    _, launches = _counted(cuda, loop)
+    _check_pages(ex)
+    return SpecRun({rid: list(r.generated_tokens) for rid, r in world.items()},
+                   counts["accepted"], counts["drafted"], counts["spec"],
+                   ex.n_dispatches - counts["spec"], launches, forwards)
+
+
+def phase_moe_spec(cfg, device) -> list:
+    """Phase 4h: ``cfg`` (mixtral-8x7b, every published width, depth cut)
+    with the port's own weights (seed 1), 4 requests of 8-64 prompt tokens
+    and 8 new tokens on fixed plans, γ=3 and 2 rounds a dispatch, under
+    ``exact`` and ``capacity``, with a draft of one layer and one of every
+    layer (the target's own tokens: drafts are accepted, so multi-token
+    commits and the KV of kept verify rows run). Gates: card tokens and
+    accept/draft counters = the CPU run's; the full-depth draft accepts;
+    under exact the tokens = the card's non-speculative run on the same
+    plans (the greedy stream; under capacity the verify pass packs
+    B·(γ+1) rows, so capacity drops and the tokens may follow the packing:
+    the share is reported); B3 launches rounds × (γ · draft layers +
+    n_layers) a dispatch, B1 n_layers a fused step, B4 three per layer and
+    router chunk of every forward pass under capacity and never under
+    exact; no round waits for the device."""
     params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
                          device)
-    prompts = np.random.default_rng(4).integers(
-        0, cfg.vocab, (2, prompt_len)).astype(np.int64)
-    d = generate(cfg, params, device, prompts, steps)
-    c = generate(cfg, params_to(params, "cpu"), "cpu", prompts, steps)
-    rec = {"model": cfg.name, "layers": cfg.n_layers, "batch": 2,
-           "prompt_tokens": prompt_len, "decode_steps": steps,
-           "tokens_equal_cpu": bool(np.array_equal(d.tokens, c.tokens)),
-           "first_logits_max_abs_err": float(np.abs(d.first - c.first).max()),
-           "b5_prefill_launches": d.prefill_launches["mamba2_scan"],
-           "b5_decode_launches": d.decode_launches["mamba2_scan"],
-           "scan_shape": list(scan_shape(cfg, 2, prompt_len))}
-    _emit("ssm_parity", rec)
-    if (not rec["tokens_equal_cpu"]
-            or rec["first_logits_max_abs_err"] > ATOL_LOGITS
-            or not _ssm_launches_ok(d, cfg, cuda)):
-        raise AssertionError(f"{cfg.name}: card and CPU disagree")
-    return rec
+    on_cpu = params_to(params, "cpu")
+    reqs = lambda: make_requests(cfg, 4, (8, 64), 8, 0.0, seed=2)
+    cuda = torch.device(device).type == "cuda"
+    recs = []
+    for impl, depth in itertools.product(("exact", "capacity"),
+                                         (1, cfg.n_layers)):
+        t0 = time.perf_counter()
+        d = spec_plans_run(cfg, params, device, reqs(), moe_impl=impl,
+                           gamma=SPEC_GAMMA, draft_layers=depth)
+        if depth == 1:
+            plain = spec_plans_run(cfg, params, device, reqs(),
+                                   moe_impl=impl, gamma=0)
+        c = spec_plans_run(cfg, on_cpu, "cpu", reqs(), moe_impl=impl,
+                           gamma=SPEC_GAMMA, draft_layers=depth)
+        per_dispatch = SPEC_ROUNDS * (SPEC_GAMMA * depth + cfg.n_layers)
+        b4 = (sum(3 * layers * router_chunks(rows, cfg.moe)
+                  for rows, layers in d.forwards)
+              if impl == "capacity" else 0)
+        want = {"paged_attention": per_dispatch * d.spec_dispatches,
+                "paged_attention_ragged": cfg.n_layers * d.fused_dispatches,
+                "moe_gmm": b4} if cuda else {}
+        rec = {"model": cfg.name, "layers": cfg.n_layers, "moe_impl": impl,
+               "draft_layers": depth,
+               "gamma": SPEC_GAMMA, "rounds_per_dispatch": SPEC_ROUNDS,
+               "reduced": [f"n_layers {get(cfg.name).n_layers} -> "
+                           f"{cfg.n_layers}"],
+               "tokens_equal_cpu": d.tokens == c.tokens,
+               "counters": [d.accepted, d.drafted],
+               "cpu_counters": [c.accepted, c.drafted],
+               "tokens_equal_non_speculative": d.tokens == plain.tokens,
+               "share_tokens_equal_non_speculative":
+                   _share_equal(d.tokens, plain.tokens),
+               "spec_dispatches": d.spec_dispatches,
+               "fused_dispatches": d.fused_dispatches,
+               "launches": d.launches, "expected_launches": want,
+               "seconds": time.perf_counter() - t0}
+        _emit("moe_spec_parity", rec)
+        ok = (rec["tokens_equal_cpu"] and rec["counters"] ==
+              rec["cpu_counters"] and d.spec_dispatches >= 1
+              and d.drafted > 0 and (d.accepted > 0 or depth == 1)
+              and all(d.launches[k] == n for k, n in want.items()))
+        if impl == "exact":
+            ok &= rec["tokens_equal_non_speculative"]
+        if cuda and impl == "capacity":
+            ok &= d.launches["moe_gmm"] > 0
+        if not ok:
+            raise AssertionError(f"MoE speculation ({impl}, draft of "
+                                 f"{depth} layers): card, CPU, launches, "
+                                 f"acceptance or stream disagree")
+        recs.append(rec)
+    return recs
 
 
-# (batch, prompt tokens, greedy decode steps) of phase 5e
+# ---------------------------------------------------------------------------
+# phases 4e, 4i, 5e, 5h, 5i: every decoder-only family through DecoderLM
+# ---------------------------------------------------------------------------
+
+# (arch, layers, batch, prompt tokens, moe_impl) of phases 4e (mamba2) and
+# 4i: every family at full width, 4i's prompts past the flash threshold
+# (1024) and, for gemma3, past its 512-token window into the banded path
+DECODER_PARITY = (("mamba2-1.3b", 2, 2, 300, "capacity"),
+                  ("zamba2-2.7b", 6, 1, 1024, "capacity"),
+                  ("gemma3-1b", 6, 1, 1536, "capacity"),
+                  ("pixtral-12b", 2, 1, 1024, "capacity"),
+                  ("deepseek-67b", 2, 1, 1024, "capacity"),
+                  ("mixtral-8x7b", 2, 1, 1024, "capacity"),
+                  ("mixtral-8x7b", 2, 1, 1024, "exact"),
+                  ("stablelm-3b", 2, 1, 1024, "capacity"))
+
+
+def _prompts(cfg, batch: int, prompt: int, seed: int) -> np.ndarray:
+    """Token ids, or embeddings × 0.1 for a VLM backbone."""
+    rng = np.random.default_rng(seed)
+    if cfg.embeds_input:
+        return (rng.standard_normal((batch, prompt, cfg.d_model))
+                * 0.1).astype(np.float32)
+    return rng.integers(0, cfg.vocab, (batch, prompt)).astype(np.int64)
+
+
+def _decoder_launches_ok(run: Generated, cfg, moe_impl: str,
+                         cuda: bool) -> bool:
+    """B5 once per Mamba2 block in the prefill and never in decode, B4
+    in the prefill and in decode under capacity on a MoE model, no other
+    kernel (on the CPU nothing launches)."""
+    mamba = cfg.n_layers if cfg.ssm is not None and cuda else 0
+    gmm = cfg.moe is not None and moe_impl == "capacity" and cuda
+    ok = (run.prefill_launches["mamba2_scan"] == mamba
+          and run.decode_launches["mamba2_scan"] == 0
+          and (run.prefill_launches["moe_gmm"] > 0) == gmm
+          and (run.decode_launches["moe_gmm"] > 0) == gmm)
+    others = [n for n in KERNELS if n not in ("mamba2_scan", "moe_gmm")]
+    return ok and all(run.prefill_launches[n] == run.decode_launches[n] == 0
+                      for n in others)
+
+
+def phase_decoder_parity(device, cases=DECODER_PARITY, steps=8) -> list:
+    """Phases 4e (the SSM family, tagged ``ssm_parity``) and 4i: each
+    case's config at full width with its depth cut, the port's own weights
+    (seed 1), through ``DecoderLM.prefill`` and ``steps`` greedy
+    ``decode_step``s on ``device`` and on the CPU. Gates: first logits
+    within 1e-3, greedy tokens equal, the kernels each family runs
+    launched as ``_decoder_launches_ok`` says."""
+    cuda = torch.device(device).type == "cuda"
+    recs = []
+    for arch, layers, batch, prompt, impl in cases:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        opts = ModelOpts(moe_impl=impl)
+        params = init_params(cfg, torch.Generator(
+            device=device).manual_seed(1), device)
+        prompts = _prompts(cfg, batch, prompt, seed=6)
+        d = generate(cfg, params, device, prompts, steps, opts)
+        c = generate(cfg, params_to(params, "cpu"), "cpu", prompts, steps,
+                     opts)
+        rec = {"model": cfg.name, "layers": layers, "batch": batch,
+               "prompt_tokens": prompt, "decode_steps": steps,
+               "moe_impl": impl if cfg.moe is not None else None,
+               "input": "embeds" if cfg.embeds_input else "tokens",
+               "reduced": [f"n_layers {get(arch).n_layers} -> {layers}"],
+               "tokens_equal_cpu": bool(np.array_equal(d.tokens, c.tokens)),
+               "first_logits_max_abs_err": float(
+                   np.abs(d.first - c.first).max()),
+               "prefill_launches": d.prefill_launches,
+               "decode_launches": d.decode_launches,
+               "seconds": time.perf_counter() - t0}
+        if cfg.ssm is not None:
+            rec["scan_shape"] = list(scan_shape(cfg, batch, prompt))
+        _emit("ssm_parity" if cfg.family == "ssm" else "decoder_parity", rec)
+        if (not rec["tokens_equal_cpu"]
+                or rec["first_logits_max_abs_err"] > ATOL_LOGITS
+                or not _decoder_launches_ok(d, cfg, impl, cuda)):
+            raise AssertionError(f"{cfg.name} ({impl}): card and CPU "
+                                 f"disagree, or the launches are wrong")
+        recs.append(rec)
+        del params, d, c
+        if cuda:
+            _release_memory()
+    return recs
+
+
+B5_KERNELS = ("chunk_prep_kernel", "chunk_state_kernel", "state_pass_kernel",
+              "chunk_scan_kernel")
+
+
+def prefill_device_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` (every kernel, copy and memset of
+    its ``torch.profiler`` trace) and B5's four kernels' part of it."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = pathlib.Path(__file__).resolve().parent / "build" / "profile" / \
+        "decoder_prefill.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    total = sum(e["dur"] for e in events) / 1e3
+    b5 = sum(e["dur"] for e in events
+             if any(k in e.get("name", "") for k in B5_KERNELS)) / 1e3
+    return {"device_ms": total, "b5_device_ms": b5,
+            "b5_share": b5 / total if total else None}
+
+
+def _ring_positions_ok(cfg, cache: dict, seen: int) -> bool:
+    """Every attention cache holds the positions it must after ``seen``
+    tokens: a shared block's (width ``seen``) all of 0..seen-1, a local
+    layer's ring exactly the last ``window``, a global layer's all."""
+    if cfg.family == "hybrid":
+        kp = cache["attn"]["kv_pos"]
+        return torch.equal(kp.sort(-1).values,
+                           torch.arange(seen, device=kp.device,
+                                        dtype=kp.dtype).expand_as(kp))
+    ok = True
+    for i, c in enumerate(cache["kv"]):
+        lo = seen - min(cfg.layer_window(i) or seen, seen)
+        kp = c["kv_pos"]
+        ok &= torch.equal(kp.sort(-1).values,
+                          torch.arange(lo, seen, device=kp.device,
+                                       dtype=kp.dtype).expand_as(kp))
+    return bool(ok)
+
+
+# (batch, prompt tokens, greedy decode steps) of phases 5h and 5i, and of
+# phase 5e (mamba2-1.3b)
+DECODER_SERVE = ((8, 2048, 64),)
 SSM_SERVE = ((8, 2048, 64), (1, 32768, 16))
 
 
@@ -1783,30 +2070,36 @@ def _leaves(tree):
         yield tree
 
 
-def phase_ssm_serve(cfg, device, workloads=SSM_SERVE) -> list:
-    """Phase 5e: ``cfg`` (mamba2-1.3b, every layer) with fp32 weights from
-    seed 0 through ``DecoderLM.prefill`` plus greedy ``decode_step``s.
-    Every token in [0, vocab), B5 launched n_layers times per prefill at a
-    shape phase 3e checked, never in decode."""
+def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
+    """Phases 5e (mamba2-1.3b, tagged ``ssm_serve``), 5h (zamba2-2.7b) and
+    5i (gemma3-1b): ``cfg`` at full depth and width with fp32 weights from
+    seed 0 through ``DecoderLM.prefill`` plus greedy ``decode_step``s, once
+    per workload. Gates: every token in [0, vocab); the attention caches,
+    where there are any, hold the positions ``_ring_positions_ok`` says;
+    B5 launched n_layers times per prefill at a shape phase 3e checked,
+    never in decode. Reports the serving numbers and the device ms of one
+    more prefill by ``torch.profiler``, with B5's share."""
     cuda = torch.device(device).type == "cuda"
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
-    checked = {scan_shape(cfg, b, s) for _, b, s in SSM_STEPS}
+    scan_steps = {"ssm": SSM_STEPS, "hybrid": HYBRID_SSM_STEPS}.get(
+        cfg.family, ())
+    checked = {scan_shape(cfg, b, s) for _, b, s in scan_steps}
     recs = []
-    for batch, prompt_len, steps in workloads:
-        prompts = np.random.default_rng(5).integers(
-            0, cfg.vocab, (batch, prompt_len)).astype(np.int64)
+    for batch, prompt, steps in workloads:
+        prompts = _prompts(cfg, batch, prompt, seed=5)
         if cuda:
             _release_memory()
             torch.cuda.reset_peak_memory_stats()
         run = generate(cfg, params, device, prompts, steps)
+        rings = (None if cfg.family == "ssm"
+                 else _ring_positions_ok(cfg, run.cache, prompt + steps))
         n_out = run.tokens.size
         decode_s = sum(run.step_s)
-        shape = scan_shape(cfg, batch, prompt_len)
         rec = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
-               "prompt_tokens": prompt_len, "decode_steps": steps,
+               "prompt_tokens": prompt, "decode_steps": steps,
                "prefill_s": run.prefill_s,
-               "prefill_tok_per_s": batch * prompt_len / run.prefill_s,
+               "prefill_tok_per_s": batch * prompt / run.prefill_s,
                "decode_step_median_ms": statistics.median(run.step_s) * 1e3,
                "decode_tok_per_s": batch * steps / decode_s,
                "output_tokens": n_out,
@@ -1814,22 +2107,31 @@ def phase_ssm_serve(cfg, device, workloads=SSM_SERVE) -> list:
                "weight_bytes": sum(t.numel() * 4 for t in _leaves(params)),
                "max_memory_allocated_bytes": (
                    torch.cuda.max_memory_allocated() if cuda else None),
+               "ring_positions_ok": rings,
                "b5_prefill_launches": run.prefill_launches["mamba2_scan"],
-               "b5_decode_launches": run.decode_launches["mamba2_scan"],
-               "scan_shape": list(shape)}
-        _emit("ssm_serve", rec)
-        if (run.tokens.min() < 0 or run.tokens.max() >= cfg.vocab
-                or run.tokens.shape != (batch, steps + 1)
-                or not _ssm_launches_ok(run, cfg, cuda)
-                or shape not in checked):
-            raise AssertionError(f"{cfg.name} B={batch} S={prompt_len}: "
-                                 f"bad output, launches or shape")
-        recs.append(rec)
+               "b5_decode_launches": run.decode_launches["mamba2_scan"]}
+        ok = (run.tokens.min() >= 0 and run.tokens.max() < cfg.vocab
+              and run.tokens.shape == (batch, steps + 1)
+              and rings is not False
+              and _decoder_launches_ok(run, cfg, "capacity", cuda))
+        if cfg.ssm is not None:
+            rec["scan_shape"] = list(scan_shape(cfg, batch, prompt))
+            ok &= tuple(rec["scan_shape"]) in checked
         del run
+        if cuda:
+            _release_memory()
+            model = DecoderLM(cfg, device=device)
+            x = torch.as_tensor(prompts, device=device)
+            rec.update(prefill_device_ms(
+                lambda: model.prefill(params, x, prompt + steps)))
+            del model, x
+        _emit("ssm_serve" if cfg.family == "ssm" else "decoder_serve", rec)
+        if not ok:
+            raise AssertionError(f"{cfg.name} B={batch} S={prompt}: bad "
+                                 f"tokens, ring positions, launches or "
+                                 f"scan shape")
+        recs.append(rec)
     return recs
-
-
-# ---------------------------------------------------------------------------
 
 
 # ---------------------------------------------------------------------------
@@ -2367,6 +2669,8 @@ def main() -> int:
     qrecs = phase_quant_kernels("cuda", cuda_timer)
     mrecs = phase_moe_kernels("cuda", cuda_timer)
     srecs = phase_ssm_kernels("cuda", cuda_timer)
+    hrecs = phase_ssm_kernels("cuda", cuda_timer, cfg=get("zamba2-2.7b"),
+                              steps=HYBRID_SSM_STEPS)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
@@ -2375,8 +2679,10 @@ def main() -> int:
     phase_moe_parity(dataclasses.replace(get("mixtral-8x7b"), n_layers=2),
                      "cuda")
     _release_memory()
-    phase_ssm_parity(dataclasses.replace(get("mamba2-1.3b"), n_layers=2),
-                     "cuda")
+    phase_moe_spec(dataclasses.replace(get("mixtral-8x7b"), n_layers=2),
+                   "cuda")
+    _release_memory()
+    phase_decoder_parity("cuda")
     _release_memory()
     phase_cache_parity(small, "cuda")
     phase_migration_parity(small, "cuda")
@@ -2403,7 +2709,11 @@ def main() -> int:
     served_mrecs = phase_moe_kernels("cuda", cuda_timer,
                                      serve_moe_steps(by_c, mix))
     _release_memory()
-    phase_ssm_serve(get("mamba2-1.3b"), "cuda")
+    phase_decoder_serve(get("mamba2-1.3b"), "cuda", SSM_SERVE)
+    _release_memory()
+    phase_decoder_serve(get("zamba2-2.7b"), "cuda")
+    _release_memory()
+    phase_decoder_serve(get("gemma3-1b"), "cuda")
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     dec_rec = recs[2]             # step (b), pages of 128
@@ -2417,6 +2727,7 @@ def main() -> int:
                    key=lambda r: r["C"])   # gate/up at 5d's largest C
     main_srec = srecs[0]          # step (l), zero state: 5e (i)'s shape
     long_srec = srecs[2]          # step (m), zero state: 5e (ii)'s shape
+    hyb_srec = hrecs[0]           # step (h), zero state: 5h's shape
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -2473,13 +2784,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba2_scan.py:64",
         "launches": SERVING_LAUNCHES["mamba2_scan"],
         "max_abs_err": max(max(r["max_abs_err"], r["state_max_abs_err"])
-                           for r in srecs),
+                           for r in srecs + hrecs),
         "ms": main_srec["ms"], "plain_ms": main_srec["plain_ms"],
         "bound_ms": main_srec["bound_ms"], "bound_by": main_srec["bound_by"],
         "library_ms": main_srec["library_ms"],
         "graph_ms": main_srec["graph_ms"], "long_ms": long_srec["ms"],
         "long_graph_ms": long_srec["graph_ms"],
-        "long_bound_ms": long_srec["bound_ms"]}]
+        "long_bound_ms": long_srec["bound_ms"],
+        "hybrid_ms": hyb_srec["ms"], "hybrid_plain_ms": hyb_srec["plain_ms"],
+        "hybrid_graph_ms": hyb_srec["graph_ms"],
+        "hybrid_bound_ms": hyb_srec["bound_ms"],
+        "hybrid_bound_by": hyb_srec["bound_by"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

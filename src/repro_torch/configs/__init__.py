@@ -1,9 +1,10 @@
-"""Config registry: the architectures the port runs so far — the dense
-and MoE families the paged executor serves, and the SSM family (mamba2)
-that ``models.lm.DecoderLM`` runs.
+"""Config registry: every decoder-only architecture of the JAX package —
+the dense and MoE families the paged executor serves, and every family
+``models.lm.DecoderLM`` runs (dense, MoE, VLM, SSM, hybrid).
 
 ``base.py`` and the config modules are copies of ``src/repro/configs``;
-later slices add the remaining architectures to ``_load_all``.
+the encoder-decoder seamless-m4t-large-v2 comes with ``EncDecLM``
+(ROADMAP A12b (iii)).
 """
 from .base import (ArchConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES,
                    cells, long_context_capable, get, get_reduced, all_archs)
@@ -15,8 +16,9 @@ def _load_all() -> None:
     global _LOADED
     if _LOADED:
         return
-    from . import (h2o_danube_1_8b, kimi_k2_1t_a32b,  # noqa: F401
-                   mamba2_1_3b, mixtral_8x7b, stablelm_3b)
+    from . import (deepseek_67b, gemma3_1b, h2o_danube_1_8b,  # noqa: F401
+                   kimi_k2_1t_a32b, mamba2_1_3b, mixtral_8x7b, pixtral_12b,
+                   stablelm_3b, zamba2_2_7b)
     _LOADED = True
 
 

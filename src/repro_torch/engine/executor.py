@@ -37,9 +37,9 @@ A ``cache.PrefixCache`` built on the executor's allocator attaches with
 ``attach_cache``: cache hits fork shared pages into a request's table, and
 an extend that runs out of pages evicts cached pages and retries.
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh`` sharding and
-speculative decode on a MoE target. The SSM and hybrid families are refused as the JAX executor
-refuses them: the SSM family runs through ``models.lm.DecoderLM``.
+Not ported yet (raises ``NotImplementedError``): ``mesh`` sharding. The
+SSM and hybrid families are refused as the JAX executor refuses them: they
+run through ``models.lm.DecoderLM``.
 """
 from __future__ import annotations
 
@@ -59,9 +59,9 @@ from ..kernels.ops import (paged_attention_op, paged_attention_quant_op,
                            paged_attention_ragged_op,
                            paged_attention_ragged_quant_op)
 from ..kernels.quant import QuantSpec, kv_quant_spec, quantize_kv, raw_pool
-from ..models.layers import attn_qkv, mlp_apply
+from ..models.layers import attn_qkv, layer_ffn
 from ..models.module import rmsnorm
-from ..models.moe import moe_capacity, moe_dense_exact
+from ..models.moe import MOE_IMPLS
 from ..models.weights import params_to
 from .kv_manager import BlockAllocator
 
@@ -200,22 +200,6 @@ def scatter_kv(pages, x, idx, spec: Optional[QuantSpec] = None,
     xq, xs = quantize_kv(x, spec)
     raw_pool(pages).index_put_(idx, raw_pool(xq))
     scale_pages.index_put_(sidx, xs)
-
-
-MOE_IMPLS = ("exact", "capacity")
-
-
-def layer_ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor,
-              moe_impl: str = "exact") -> torch.Tensor:
-    """Residual FFN block: the gated MLP, or for MoE archs ``moe_impl``'s
-    FFN over the flattened tokens — every row of x, padding included, as
-    the JAX executor routes them (``_layer_ffn``)."""
-    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    if cfg.moe is None:
-        return x + mlp_apply(lp["mlp"], h)
-    moe_fn = moe_capacity if moe_impl == "capacity" else moe_dense_exact
-    y = moe_fn(h.reshape(-1, h.shape[-1]), lp["moe"], cfg.moe)
-    return x + y.reshape(h.shape)
 
 
 def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
@@ -704,9 +688,11 @@ class PagedTransformerExecutor:
 
     def set_draft(self, draft) -> None:
         """Install a draft adapter (``spec_decode``); enables
-        ``execute_multi(speculate=γ)``. Dense targets only."""
-        if self.cfg.moe is not None:
-            raise _later("speculative decode on a MoE target", "ROADMAP §C")
+        ``execute_multi(speculate=γ)``. On a MoE target a
+        ``TruncatedSelfDraft`` runs the target's own FFN under the
+        executor's ``moe_impl`` (kernel B4 under ``"capacity"``), as the JAX
+        draft runs the target's ``_forward``; a ``SmallModelDraft`` asserts
+        a dense draft arch in its constructor."""
         draft.bind(self)
         self.draft = draft
 

@@ -1,7 +1,22 @@
-"""Transformer layer primitives the serving step uses: the QKV projection
-with RoPE and the gated MLP. Port of ``attn_qkv`` and ``mlp_apply`` in
+"""Transformer layer primitives: GQA attention with ring-buffer KV caches,
+the gated MLP and the residual FFN block (MLP or MoE). Port of
 ``src/repro/models/layers.py``; the matrix products stay ``torch.matmul``,
-as the JAX package left them to XLA."""
+as the JAX package left them to XLA.
+
+KV cache contract (per attention stack; stacks share one window size W):
+    k, v   : (L, B, W, Hkv, Dh)  — ring buffer, slot of global pos p = p % W
+    kv_pos : (B, W) int32        — global position held in each slot, -1 empty
+    (full-attention stacks are the W = max_len special case)
+
+Position-array-driven masking (``attention.py``) makes ring order
+irrelevant to correctness — slots carry their global positions, the mask
+does the rest. A decode step writes its token into the cache in place,
+where JAX's ``.at[].set`` returns new arrays (the serving path donates the
+cache, so XLA updates it in place too). ``cross_attn_apply`` comes with the
+encoder-decoder (ROADMAP A12b (iii)); the parameter initializers are
+subtrees of ``weights.init_params``; there are no sharding constraints (the
+port has no mesh, ROADMAP A13).
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +24,10 @@ from typing import Optional
 import torch
 
 from ..configs.base import ArchConfig
-from .module import silu
+from .attention import (dense_attention, flash_attention,
+                        flash_attention_banded)
+from .module import rmsnorm, silu
+from .moe import moe_capacity, moe_dense_exact
 from .rope import apply_rope
 
 
@@ -17,6 +35,73 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
 
+
+def layer_ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+              moe_impl: str = "exact") -> torch.Tensor:
+    """Residual FFN block: the gated MLP, or for MoE archs ``moe_impl``'s
+    FFN over the flattened tokens — every row of x, padding included, as
+    the JAX executor (``_layer_ffn``) and ``DecoderLM`` (``_ffn``) route
+    them."""
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is None:
+        return x + mlp_apply(lp["mlp"], h)
+    moe_fn = moe_capacity if moe_impl == "capacity" else moe_dense_exact
+    y = moe_fn(h.reshape(-1, h.shape[-1]), lp["moe"], cfg.moe)
+    return x + y.reshape(h.shape)
+
+
+# --------------------------------------------------------------------------
+# KV cache ring-buffer plumbing
+# --------------------------------------------------------------------------
+
+def empty_kv_cache(n_layers: int, batch: int, width: int, n_kv: int,
+                   head_dim: int, dtype=torch.float32, device=None) -> dict:
+    """Zero K/V and empty slots; fp32 by default, the port's one cache
+    dtype (the JAX default of bf16 is ROADMAP B6's)."""
+    shape = (n_layers, batch, width, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kv_pos": torch.full((batch, width), -1, dtype=torch.int32,
+                                 device=device)}
+
+
+def prefill_ring_write(k_new: torch.Tensor, seq_len: int, width: int):
+    """Gather indices + positions to store the last `width` of a prefilled
+    sequence into ring order. Returns (gather_idx (W,) int64, kv_pos (W,)
+    int32) on ``k_new``'s device — shared by every layer/batch."""
+    s = torch.arange(width, device=k_new.device)
+    if seq_len <= width:
+        idx = s % max(seq_len, 1)
+        pos = torch.where(s < seq_len, s, -1)
+        return idx, pos.to(torch.int32)
+    start = seq_len - width
+    idx = start + ((s - (start % width)) % width)
+    return idx, idx.to(torch.int32)  # position == token index
+
+
+def write_prefix_cache(k: torch.Tensor, v: torch.Tensor, width: int):
+    """k, v: (B, S, Hkv, Dh) freshly-prefilled → ring cache (B, W, Hkv, Dh)
+    and kv_pos (B, W)."""
+    idx, pos = prefill_ring_write(k, k.shape[1], width)
+    return (k.index_select(1, idx), v.index_select(1, idx),
+            pos.expand(k.shape[0], width).contiguous())
+
+
+def decode_ring_write(cache_k, cache_v, kv_pos, k_new, v_new, positions):
+    """Insert one token per sequence, in place. cache_*: (B,W,Hkv,Dh);
+    k_new: (B,1,...); positions: (B,) global position of the new token.
+    Returns the three updated tensors."""
+    slot = (positions % cache_k.shape[1]).long()
+    b = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k[b, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[b, slot] = v_new[:, 0].to(cache_v.dtype)
+    kv_pos[b, slot] = positions.to(kv_pos.dtype)
+    return cache_k, cache_v, kv_pos
+
+
+# --------------------------------------------------------------------------
+# Attention block apply
+# --------------------------------------------------------------------------
 
 def attn_qkv(p: dict, h: torch.Tensor, positions: torch.Tensor,
              cfg: ArchConfig, theta: Optional[float] = None):
@@ -30,3 +115,45 @@ def attn_qkv(p: dict, h: torch.Tensor, positions: torch.Tensor,
     q = apply_rope(q, positions, th)
     k = apply_rope(k, positions, th)
     return q, k, v
+
+
+def attn_seq(p, x, positions, cfg: ArchConfig, *, window: Optional[int],
+             ln_w, impl: str = "flash", flash_block: int = 512,
+             cache_width: Optional[int] = None):
+    """Full-sequence causal attention (whole-prompt prefill): under
+    ``flash`` a windowed layer takes the banded path, as JAX's serving
+    forward does (its unbanded windowed flash belongs to training, ROADMAP
+    A14; the non-causal form to the encoder, A12b (iii)).
+
+    Returns (residual output, (k_ring, v_ring, kv_pos) if cache_width else
+    None).
+    """
+    h = rmsnorm(x, ln_w, cfg.norm_eps)
+    q, k, v = attn_qkv(p, h, positions, cfg)
+    if impl == "flash" and window:
+        o = flash_attention_banded(q, k, v, positions, positions,
+                                   window=window, block=flash_block)
+    elif impl == "flash":
+        o = flash_attention(q, k, v, positions, positions, window=window,
+                            block=flash_block)
+    else:
+        o = dense_attention(q, k, v, positions, positions, window=window)
+    out = o.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
+    new_cache = None
+    if cache_width is not None:
+        new_cache = write_prefix_cache(k, v, cache_width)
+    return x + out, new_cache
+
+
+def attn_decode(p, x, positions, cfg: ArchConfig, *, window: Optional[int],
+                ln_w, cache_k, cache_v, kv_pos):
+    """Single-token decode against a ring cache, which it updates in place.
+    x: (B, 1, d)."""
+    h = rmsnorm(x, ln_w, cfg.norm_eps)
+    q, k, v = attn_qkv(p, h, positions, cfg)
+    cache_k, cache_v, kv_pos = decode_ring_write(
+        cache_k, cache_v, kv_pos, k, v, positions[:, 0])
+    o = dense_attention(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
+                        positions, kv_pos, causal=True, window=window)
+    out = o.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
+    return x + out, (cache_k, cache_v, kv_pos)

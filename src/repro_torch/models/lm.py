@@ -1,34 +1,88 @@
-"""Decoder-only LM of the SSM family (mamba2), in PyTorch.
+"""Decoder-only LM assembly for every decoder-only architecture family, in
+PyTorch.
 
-Port of ``src/repro/models/lm.py``'s ``DecoderLM`` for ``family == "ssm"``,
-the family the paged executor does not serve (nor does the JAX one). Its
-entry points are the JAX package's:
+Port of ``src/repro/models/lm.py``'s ``DecoderLM``: one class, four family
+paths, the JAX package's three serving entry points.
 
-  * ``prefill(params, tokens, max_len)`` — whole prompt → last logits and
-    the cache; every Mamba2 block's chunk scan runs on kernel B5 on the
-    card (``mamba2.ssd_chunked``), so B5 launches ``n_layers`` times;
-  * ``decode_step(params, tokens, cache)`` — one token per sequence, the
-    one-step recurrence as tensor ops (B5 launches 0 times);
+  * families: uniform transformer (dense / moe / vlm), ssm (mamba2), hybrid
+    (zamba2: mamba backbone + one weight-shared attention block after every
+    ``attn_period`` Mamba2 blocks), with per-layer windows (gemma3
+    local:global) on the unrolled path;
+  * ``prefill(params, inputs, max_len)`` — whole prompt (tokens (B, S), or
+    ``{"embeds": (B, S, d)}`` for the VLM backbone) → last logits and the
+    cache: ring KV caches of width ``min(window, max_len)`` per attention
+    stack, Mamba2 states per block;
+  * ``decode_step(params, tokens, cache)`` — one token per sequence; the
+    ring caches are written in place (``layers.decode_ring_write``);
   * ``init_cache(batch, max_len)`` — the zero cache.
 
-The JAX scan over stacked layer params becomes a Python loop over the
-stacked tensors; the new caches are stacked back (``{"ssm": (L, B, H, P,
-N), "conv": (L, B, d_conv-1, conv_dim)}``), as the scan returns them.
-``constrain`` is the identity: the port has no mesh (ROADMAP A13), so the
-JAX calls are left out. ``DecoderLM(cfg, device=None)`` runs on the card
-unless the caller asks for the CPU (``_device.resolve_device``). Every
-other family raises ``NotImplementedError`` (ROADMAP A12b); ``train_loss``
-is not ported (ROADMAP A14).
+Kernels on the card: every Mamba2 block's prefill chunk scan is kernel B5
+(``mamba2.ssd_chunked``), and the MoE FFN under ``moe_impl="capacity"``
+runs its three expert GEMMs on kernel B4 (``moe.moe_capacity``). Attention
+is ``attention.py``'s plain tensor ops, as the JAX model's is plain XLA.
+
+Cache layouts are the JAX package's: stacked ``{"k", "v": (L, B, W, Hkv,
+Dh), "kv_pos": (B, W)}`` with one shared ``kv_pos`` when the layers are
+"scanned" (here a Python loop over the stacked weights); a per-layer list
+of ``{"k", "v", "kv_pos"}`` with per-layer widths when unrolled (gemma3's
+``local_global_period``, or ``scan_layers=False``); for the hybrid,
+``{"mamba": (L, ...), "attn": {"k", "v": (G, B, W, Hkv, Dh), "kv_pos": (G,
+B, W)}}`` with one attention cache per shared-block application.
+``constrain`` is the identity: the port has no mesh (ROADMAP A13).
+``DecoderLM(cfg, opts, device=None)`` runs on the card unless the caller
+asks for the CPU (``_device.resolve_device``). Not ported: ``train_loss``,
+``chunked_ce_loss``, ``axes``/``cache_axes`` and the remat and costing
+options (ROADMAP A13, A14); the encoder-decoder raises
+``NotImplementedError`` (ROADMAP A12b (iii)).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from . import layers as L
 from . import mamba2 as M
+from .moe import MOE_IMPLS
 from .module import rmsnorm
 from .weights import init_params
+
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+
+
+@dataclasses.dataclass
+class ModelOpts:
+    """The serving options of the JAX ``ModelOpts``. Every dtype is fp32,
+    as the JAX executor and model serve: another dtype raises
+    ``TypeError`` (bf16 is ROADMAP B6, the training dtypes A14)."""
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    cache_dtype: torch.dtype = torch.float32
+    attn_impl: str = "auto"        # dense | flash | auto
+    flash_block: int = 512
+    moe_impl: str = "capacity"     # capacity | exact
+    scan_layers: bool = True       # False → per-layer cache list
+
+    def __post_init__(self):
+        for name in ("param_dtype", "compute_dtype", "cache_dtype"):
+            if getattr(self, name) != torch.float32:
+                raise TypeError(
+                    f"ModelOpts.{name} must be torch.float32, not "
+                    f"{getattr(self, name)}: the port serves fp32 (bf16: "
+                    f"ROADMAP B6; training dtypes: A14)")
+        if self.attn_impl not in ("dense", "flash", "auto"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
+
+
+def _auto_impl(opts: ModelOpts, seq_len: int) -> str:
+    if opts.attn_impl != "auto":
+        return opts.attn_impl
+    return "flash" if seq_len >= 1024 else "dense"
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -37,15 +91,33 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _stack(trees: list) -> dict:
+    """Per-layer trees → one stacked tree."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _kv(kv) -> dict:
+    return {"k": kv[0], "v": kv[1], "kv_pos": kv[2]}
+
+
 class DecoderLM:
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family != "ssm" or cfg.ssm is None:
+    def __init__(self, cfg: ArchConfig, opts: Optional[ModelOpts] = None,
+                 device: DeviceLike = None):
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"DecoderLM covers the ssm family so far; {cfg.name} is "
-                f"{cfg.family} (dense, MoE, gemma3, VLM and the hybrid "
-                f"zamba2: ROADMAP A12b)")
+                f"{cfg.name} is an encoder-decoder: EncDecLM is not ported "
+                f"yet (ROADMAP A12b (iii))")
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"DecoderLM runs the {', '.join(FAMILIES)} families; "
+                f"{cfg.name} is {cfg.family}")
         self.cfg = cfg
+        self.opts = opts or ModelOpts()
         self.device = resolve_device(device)
+        # gemma3-style heterogeneous windows force the unrolled path
+        self.unroll = (not self.opts.scan_layers
+                       or cfg.local_global_period is not None)
 
     def init(self, generator: torch.Generator) -> dict:
         """The JAX ``init`` tree, drawn by ``init_params`` from
@@ -56,13 +128,68 @@ class DecoderLM:
     # pieces
     # ------------------------------------------------------------------
 
-    def _embed(self, params, tokens):
-        return params["embed"].float()[tokens.long()]
+    def _embed(self, params, inputs):
+        if isinstance(inputs, dict) and "embeds" in inputs:
+            return inputs["embeds"].float()
+        toks = inputs["tokens"] if isinstance(inputs, dict) else inputs
+        return params["embed"].float()[toks.long()]
+
+    def _layer_seq(self, lp, x, positions, window, cache_width, impl):
+        x, kv = L.attn_seq(lp["attn"], x, positions, self.cfg, window=window,
+                           ln_w=lp["ln1"], impl=impl,
+                           flash_block=self.opts.flash_block,
+                           cache_width=cache_width)
+        return L.layer_ffn(self.cfg, lp, x, self.opts.moe_impl), kv
+
+    def _layer_decode(self, lp, x, positions, window, kv):
+        x, kv = L.attn_decode(lp["attn"], x, positions, self.cfg,
+                              window=window, ln_w=lp["ln1"],
+                              cache_k=kv[0], cache_v=kv[1], kv_pos=kv[2])
+        return L.layer_ffn(self.cfg, lp, x, self.opts.moe_impl), kv
 
     def _head(self, params, h_last):
         """h_last: (B, d) → logits (B, V) f32."""
         h = rmsnorm(h_last, params["ln_f"], self.cfg.norm_eps)
         return h.float() @ params["head"].float()
+
+    def _width(self, window, max_len):
+        return min(window, max_len) if window else max_len
+
+    # ------------------------------------------------------------------
+    # forward: uniform transformer stacks
+    # ------------------------------------------------------------------
+
+    def _uniform_seq(self, params, x, positions, max_len):
+        cfg, layers = self.cfg, params["layers"]
+        impl = _auto_impl(self.opts, x.shape[1])
+        caches = []
+        for i in range(cfg.n_layers):
+            # layer_window(i) is cfg.window unless local:global forces
+            # the unrolled layout
+            win = cfg.layer_window(i)
+            x, kv = self._layer_seq(_layer(layers, i), x, positions, win,
+                                    self._width(win, max_len), impl)
+            caches.append(_kv(kv))
+        if self.unroll:
+            return x, caches
+        stacked = _stack([{"k": c["k"], "v": c["v"]} for c in caches])
+        return x, {**stacked, "kv_pos": caches[0]["kv_pos"]}
+
+    def _uniform_decode(self, params, x, positions, cache):
+        cfg, layers = self.cfg, params["layers"]
+        kv = cache["kv"]
+        for i in range(cfg.n_layers):
+            # stacked: every layer writes the same slot of the shared kv_pos
+            c = kv[i] if self.unroll else {"k": kv["k"][i], "v": kv["v"][i],
+                                           "kv_pos": kv["kv_pos"]}
+            x, _ = self._layer_decode(_layer(layers, i), x, positions,
+                                      cfg.layer_window(i),
+                                      (c["k"], c["v"], c["kv_pos"]))
+        return x, kv
+
+    # ------------------------------------------------------------------
+    # forward: ssm / hybrid stacks
+    # ------------------------------------------------------------------
 
     def _mamba_block(self, lp, ln_w, x, mode, cache=None):
         h = rmsnorm(x, ln_w, self.cfg.norm_eps)
@@ -72,56 +199,159 @@ class DecoderLM:
             y, new_cache = M.mamba_seq(lp, h, self.cfg, cache)
         return x + y, new_cache
 
-    def _ssm_stack(self, params, x, mode, cache):
-        """Every Mamba2 block over ``x``; ``cache`` is the stacked cache,
-        or None for a fresh prefill (zero states, as the JAX one builds
-        them inline). Returns x and the new caches, stacked."""
+    def _mamba_span(self, params, x, mode, cache, lo, hi) -> tuple:
+        """Mamba2 blocks ``lo:hi`` over ``x`` from the stacked ``cache``;
+        returns x and the blocks' new caches, one per block."""
         layers = params["layers"]
-        if cache is None:
-            cache = self._zero_cache(x.shape[0], x.device)
         new = []
-        for i in range(self.cfg.n_layers):
+        for i in range(lo, hi):
             x, nc = self._mamba_block(_layer(layers["mamba"], i),
                                       layers["ln"][i], x, mode,
                                       _layer(cache, i))
             new.append(nc)
-        return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+        return x, new
 
-    def _zero_cache(self, batch: int, device) -> dict:
+    def _ssm_stack(self, params, x, mode, cache):
+        """Every Mamba2 block over ``x``; ``cache`` is the stacked cache, or
+        None for a fresh prefill (zero states, as the JAX one builds them
+        inline). Returns x and the new caches, stacked."""
+        if cache is None:
+            cache = self._zero_mamba(x.shape[0], x.device)
+        x, new = self._mamba_span(params, x, mode, cache, 0,
+                                  self.cfg.n_layers)
+        return x, _stack(new)
+
+    def _zero_mamba(self, batch: int, device) -> dict:
         one = M.init_mamba_cache(self.cfg, batch, device)
         return {k: v.expand(self.cfg.n_layers, *v.shape)
                 for k, v in one.items()}
+
+    def _shared_attn_block(self, sp, x, positions, mode, kv, max_len):
+        cfg = self.cfg
+        if mode == "decode":
+            x, kv = L.attn_decode(sp["attn"], x, positions, cfg, window=None,
+                                  ln_w=sp["ln1"], cache_k=kv[0],
+                                  cache_v=kv[1], kv_pos=kv[2])
+        else:
+            x, kv = L.attn_seq(sp["attn"], x, positions, cfg, window=None,
+                               ln_w=sp["ln1"],
+                               impl=_auto_impl(self.opts, x.shape[1]),
+                               flash_block=self.opts.flash_block,
+                               cache_width=max_len)
+        x = x + L.mlp_apply(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
+        return x, kv
+
+    def _hybrid_forward(self, params, x, positions, mode, cache, max_len):
+        """The Mamba2 backbone with the shared attention block after every
+        ``attn_period`` blocks, then the remaining blocks. Returns x and
+        the new cache: Mamba2 caches stacked along the layers, attention
+        caches along the block's applications (decode updates the latter
+        in place)."""
+        cfg = self.cfg
+        period = cfg.attn_period
+        n_groups = cfg.n_layers // period
+        mam = (self._zero_mamba(x.shape[0], x.device) if cache is None
+               else cache["mamba"])
+        new_mam, new_attn = [], []
+        for g in range(n_groups):
+            x, nc = self._mamba_span(params, x, mode, mam, g * period,
+                                     (g + 1) * period)
+            new_mam += nc
+            kv = None
+            if mode == "decode":
+                a = cache["attn"]
+                kv = (a["k"][g], a["v"][g], a["kv_pos"][g])
+            x, kv = self._shared_attn_block(params["shared"], x, positions,
+                                            mode, kv, max_len)
+            new_attn.append(_kv(kv))
+        if n_groups * period < cfg.n_layers:
+            x, nc = self._mamba_span(params, x, mode, mam, n_groups * period,
+                                     cfg.n_layers)
+            new_mam += nc
+        attn = cache["attn"] if mode == "decode" else _stack(new_attn)
+        return x, {"mamba": _stack(new_mam), "attn": attn}
 
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
 
-    def prefill(self, params, tokens, max_len: int):
-        """tokens (B,S) → (logits (B,V), cache). ``max_len`` is unused: the
-        SSM cache has a constant size."""
-        x = self._embed(params, tokens)
+    def prefill(self, params, inputs, max_len: int):
+        """inputs: tokens (B,S) | {'embeds': (B,S,d)} → (logits (B,V),
+        cache)."""
+        cfg = self.cfg
+        x = self._embed(params, inputs)
         b, s, _ = x.shape
-        x, kv = self._ssm_stack(params, x, "prefill", None)
-        logits = self._head(params, x[:, -1])
-        pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-        return logits, {"pos": pos, "mamba": kv}
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        cache: dict = {"pos": torch.full((b,), s, dtype=torch.int32,
+                                         device=x.device)}
+        if cfg.family == "ssm":
+            x, cache["mamba"] = self._ssm_stack(params, x, "prefill", None)
+        elif cfg.family == "hybrid":
+            x, kv = self._hybrid_forward(params, x, positions, "prefill",
+                                         None, max_len)
+            cache.update(kv)
+        else:
+            x, cache["kv"] = self._uniform_seq(params, x, positions, max_len)
+        return self._head(params, x[:, -1]), cache
 
     def decode_step(self, params, tokens, cache):
-        """tokens: (B,) int → (logits (B,V), updated cache)."""
+        """tokens: (B,) int → (logits (B,V), updated cache).
+
+        Consumes ``cache``: its attention rings (K, V and ``kv_pos``) take
+        the new token in place, where JAX's ``decode_step`` returns new
+        arrays, while its ``pos`` and Mamba2 states stay as they were. A
+        caller that steps from one cache twice (a retry, two branches from
+        one prefill) passes a copy of it."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        positions = pos[:, None]
         x = self._embed(params, tokens[:, None])
-        x, new = self._ssm_stack(params, x, "decode", cache["mamba"])
-        logits = self._head(params, x[:, 0])
-        return logits, {"pos": cache["pos"] + 1, "mamba": new}
+        if cfg.family == "ssm":
+            x, new = self._ssm_stack(params, x, "decode", cache["mamba"])
+            new_cache = {"pos": pos + 1, "mamba": new}
+        elif cfg.family == "hybrid":
+            x, new = self._hybrid_forward(params, x, positions, "decode",
+                                          cache, max_len=0)
+            new_cache = {"pos": pos + 1, **new}
+        else:
+            x, new = self._uniform_decode(params, x, positions, cache)
+            new_cache = {"pos": pos + 1, "kv": new}
+        return self._head(params, x[:, 0]), new_cache
 
     def init_cache(self, batch: int, max_len: int):
         """Zero cache (engine restore path / decode-only lowering)."""
-        zero = self._zero_cache(batch, self.device)
-        return {"pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device),
-                "mamba": {k: v.contiguous() for k, v in zero.items()}}
+        cfg, dev = self.cfg, self.device
+        cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
+                                          device=dev)}
+        if cfg.family in ("ssm", "hybrid"):
+            cache["mamba"] = {k: v.contiguous() for k, v in
+                              self._zero_mamba(batch, dev).items()}
+            if cfg.family == "hybrid":
+                n_groups = cfg.n_layers // cfg.attn_period
+                kvc = L.empty_kv_cache(n_groups, batch, max_len,
+                                       cfg.n_kv_heads, cfg.head_dim,
+                                       device=dev)
+                kvc["kv_pos"] = kvc["kv_pos"].expand(
+                    n_groups, batch, max_len).contiguous()
+                cache["attn"] = kvc
+        elif self.unroll:
+            cache["kv"] = []
+            for i in range(cfg.n_layers):
+                width = self._width(cfg.layer_window(i), max_len)
+                c = L.empty_kv_cache(1, batch, width, cfg.n_kv_heads,
+                                     cfg.head_dim, device=dev)
+                cache["kv"].append({"k": c["k"][0], "v": c["v"][0],
+                                    "kv_pos": c["kv_pos"]})
+        else:
+            cache["kv"] = L.empty_kv_cache(
+                cfg.n_layers, batch, self._width(cfg.window, max_len),
+                cfg.n_kv_heads, cfg.head_dim, device=dev)
+        return cache
 
 
-def build_model(cfg: ArchConfig, device: DeviceLike = None) -> DecoderLM:
-    """The counterpart of the JAX ``build_model`` for the families the port
-    runs through ``DecoderLM`` (ssm); fp32 only, so no ``ModelOpts``."""
-    return DecoderLM(cfg, device)
+def build_model(cfg: ArchConfig, opts: Optional[ModelOpts] = None,
+                device: DeviceLike = None) -> DecoderLM:
+    """The counterpart of the JAX ``build_model`` for the decoder-only
+    families; an encoder-decoder raises (ROADMAP A12b (iii))."""
+    return DecoderLM(cfg, opts, device)

@@ -36,6 +36,10 @@ from ..kernels.ops import moe_gmm_op
 from .module import silu
 
 
+# "exact": the per-token oracle; "capacity": the production dispatch (B4)
+MOE_IMPLS = ("exact", "capacity")
+
+
 def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     """Top-k routing. Returns (gates (T, k) f32, experts (T, k) int64)."""
     logits = x.float() @ router.float()

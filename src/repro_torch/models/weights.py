@@ -2,16 +2,19 @@
 
 The tree is the one ``DecoderLM.init`` builds (``src/repro/models/lm.py``):
 ``embed (V, d)``, ``ln_f (d,)``, ``head (d, V)`` and ``layers`` with a
-stacked leading layer dim holding, for the dense and MoE families,
+stacked leading layer dim holding, for the dense, MoE and VLM families,
 ``attn.{wq, wk, wv, wo}``, ``ln1``, ``ln2`` and either ``mlp.{w_gate,
-w_up, w_down}`` (dense) or ``moe.{router (d, E), w_gate (E, d, f), w_up
-(E, d, f), w_down (E, f, d)}`` (MoE, ``init_moe_params``); for the SSM
-family ``mamba.{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w,
-out_proj}`` (``mamba2.init_mamba_params``) and ``ln``.
+w_up, w_down}`` (dense, VLM) or ``moe.{router (d, E), w_gate (E, d, f),
+w_up (E, d, f), w_down (E, f, d)}`` (MoE, ``init_moe_params``); for the SSM
+and hybrid families ``mamba.{in_proj, conv_w, conv_b, A_log, D, dt_bias,
+norm_w, out_proj}`` (``mamba2.init_mamba_params``) and ``ln``. The hybrid
+family (zamba2) adds one weight-shared attention block, unstacked:
+``shared.{attn, ln1, mlp, ln2}``.
 
 * ``params_from_numpy`` carries a JAX parameter tree across as numpy
   arrays (``jax.tree.map(np.asarray, params)``), so both packages compute
-  the same function in the parity tests.
+  the same function in the parity tests; ``params_to_numpy`` brings a tree
+  (parameters or a cache, lists included) back.
 * ``init_params`` is the port's own initializer, drawing the same
   distributions as the JAX one (normal × 1/sqrt(fan_in), embed × 0.02, zero
   norms; MoE weights as ``init_moe_params``; Mamba2 weights as
@@ -33,6 +36,8 @@ from .mamba2 import init_mamba_params
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -55,14 +60,17 @@ def params_to(params: dict, device) -> dict:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
-    """Random fp32 parameters for a dense-, MoE- or SSM-family ``cfg``;
-    the generator must live on ``device``."""
-    uniform = cfg.family in ("dense", "moe") and cfg.ssm is None
-    ssm = cfg.family == "ssm" and cfg.ssm is not None
-    if not (uniform or ssm):
+    """Random fp32 parameters for a decoder-only ``cfg`` (dense, MoE, VLM,
+    SSM or hybrid); the generator must live on ``device``."""
+    uniform = cfg.family in ("dense", "moe", "vlm") and cfg.ssm is None
+    mamba = (cfg.ssm is not None and (cfg.family == "ssm" or (
+        cfg.family == "hybrid" and cfg.attn_period is not None)))
+    if cfg.is_encoder_decoder or not (uniform or mamba):
         raise NotImplementedError(
-            f"init_params covers the dense, MoE and SSM families; {cfg.name} "
-            f"is {cfg.family} (hybrid: ROADMAP A12b)")
+            f"init_params covers the decoder-only families (dense, MoE, VLM, "
+            f"SSM, hybrid); {cfg.name} is {cfg.family}"
+            f"{', an encoder-decoder' if cfg.is_encoder_decoder else ''} "
+            f"(the encoder-decoder: ROADMAP A12b (iii))")
     dev = torch.device(device)
     d, n = cfg.d_model, cfg.n_layers
 
@@ -74,21 +82,32 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     def zeros(shape):
         return torch.zeros(shape, device=dev, dtype=torch.float32)
 
+    def attn(lead):
+        sq = 1.0 / math.sqrt(cfg.q_dim)
+        return {"wq": normal(lead + (d, cfg.q_dim), sd),
+                "wk": normal(lead + (d, cfg.kv_dim), sd),
+                "wv": normal(lead + (d, cfg.kv_dim), sd),
+                "wo": normal(lead + (cfg.q_dim, d), sq)}
+
+    def mlp(lead):
+        sf = 1.0 / math.sqrt(cfg.d_ff)
+        return {"w_gate": normal(lead + (d, cfg.d_ff), sd),
+                "w_up": normal(lead + (d, cfg.d_ff), sd),
+                "w_down": normal(lead + (cfg.d_ff, d), sf)}
+
     sd = 1.0 / math.sqrt(d)
     # drawn in the order of the tree: embed, head, then the layers
     params = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": zeros((d,)),
               "head": normal((d, cfg.vocab), sd)}
-    if ssm:
-        return {**params, "layers": {
+    if cfg.family in ("ssm", "hybrid"):
+        params["layers"] = {
             "mamba": init_mamba_params(cfg, generator, dev, lead=(n,)),
-            "ln": zeros((n, d))}}
-    sq = 1.0 / math.sqrt(cfg.q_dim)
-    layers = {"attn": {"wq": normal((n, d, cfg.q_dim), sd),
-                       "wk": normal((n, d, cfg.kv_dim), sd),
-                       "wv": normal((n, d, cfg.kv_dim), sd),
-                       "wo": normal((n, cfg.q_dim, d), sq)},
-              "ln1": zeros((n, d)),
-              "ln2": zeros((n, d))}
+            "ln": zeros((n, d))}
+        if cfg.family == "hybrid":
+            params["shared"] = {"attn": attn(()), "ln1": zeros((d,)),
+                                "mlp": mlp(()), "ln2": zeros((d,))}
+        return params
+    layers = {"attn": attn((n,)), "ln1": zeros((n, d)), "ln2": zeros((n, d))}
     if cfg.moe is not None:
         e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
         sf = 1.0 / math.sqrt(f)
@@ -97,8 +116,5 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
                          "w_up": normal((n, e, d, f), sd),
                          "w_down": normal((n, e, f, d), sf)}
     else:
-        sf = 1.0 / math.sqrt(cfg.d_ff)
-        layers["mlp"] = {"w_gate": normal((n, d, cfg.d_ff), sd),
-                         "w_up": normal((n, d, cfg.d_ff), sd),
-                         "w_down": normal((n, cfg.d_ff, d), sf)}
+        layers["mlp"] = mlp((n,))
     return {**params, "layers": layers}

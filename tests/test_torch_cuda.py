@@ -53,6 +53,11 @@ that of a run without preemption; and KV pages migrated between two
 executors on the card are the captured payload byte for byte (scale
 pages too, at permuted scale ids), with the streams of a run that never
 migrated (fp32, int8, fp8-e4m3).
+The reduced zamba2-2.7b and gemma3-1b ``DecoderLM``s on the card give the
+CPU's greedy tokens (B5 once per Mamba2 block in zamba2's prefill), and a
+MoE target speculates with a ``TruncatedSelfDraft`` of one layer and of
+every layer (which accepts drafts) on fixed plans with the CPU's tokens
+and accept/draft counters, under both ``moe_impl``s.
 """
 import dataclasses
 
@@ -1147,3 +1152,108 @@ def test_migrated_pages_bitwise_on_card(cuda, kv_dtype):
                 dst.alloc.check_invariants()
     assert {r: q.generated_tokens for r, q in moved.items()} == \
         {r: q.generated_tokens for r, q in oracle.items()}
+
+
+# ---------------------------------------------------------------------------
+# DecoderLM for the hybrid and local:global families, MoE speculation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-1b"])
+def test_decoder_families_card_match_cpu(cuda, arch):
+    """Reduced zamba2 (two shared-block applications) and gemma3 (local
+    and global layers, a 40-token prompt past the 16-token window), the
+    port's weights: prefill and 4 greedy decode steps give the CPU's
+    tokens, logits within 1e-4 × max(1, |logits|); B5 launches once per
+    Mamba2 block in the prefill and never in decode."""
+    cfg = get_reduced(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (3, 40)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, device=dev)
+        p = params_to(params, dev)
+        before = mamba_chunk_scan.launches
+        logits, cache = m.prefill(p, toks.to(dev), max_len=48)
+        n_pre = mamba_chunk_scan.launches - before
+        out, first = [], logits.cpu()
+        for _ in range(4):
+            t = logits.argmax(-1)
+            out.append(t.tolist())
+            logits, cache = m.decode_step(p, t, cache)
+        runs[dev] = (out, first, n_pre, mamba_chunk_scan.launches - before)
+    (tok_g, lg_g, pre_g, all_g), (tok_c, lg_c, pre_c, all_c) = (
+        runs["cuda"], runs["cpu"])
+    assert tok_g == tok_c
+    tol = 1e-4 * max(1.0, float(lg_c.abs().max()))
+    assert float((lg_g - lg_c).abs().max()) < tol
+    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    assert pre_g == all_g == mamba
+    assert pre_c == all_c == 0
+
+
+def _spec_fixed_plans(ex, world, gamma=3, rounds=2):
+    """``_fixed_step``'s plans until every active request decodes, then
+    speculative dispatches over all of them; returns the accepted and
+    drafted counts."""
+    accepted = drafted = 0
+    while any(r.active for r in world.values()):
+        active = [r for r in world.values() if r.active]
+        if all(r.state is RequestState.DECODE for r in active):
+            plan = BatchPlan([BatchItem(r.req_id, 1, TaskKind.DECODE)
+                              for r in active], 0.0, 0.0, 0, 0)
+            _, out = ex.execute_multi(plan, world, 0.0, rounds,
+                                      speculate=gamma)
+            assert not ex.last_deferred
+            accepted += ex.last_spec_accepted
+            drafted += ex.last_spec_drafted
+            for em in out:
+                for rid, toks in em.items():
+                    if toks:
+                        world[rid].generated_tokens.extend(toks)
+                        world[rid].advance(len(toks), 0.0)
+        else:
+            _fixed_step(ex, world, list(world))
+        for r in world.values():
+            if not r.active:
+                ex.release(r.req_id)
+    return accepted, drafted
+
+
+@pytest.mark.parametrize("draft", ["one_layer", "full_depth"])
+@pytest.mark.parametrize("moe_impl", ["exact", "capacity"])
+def test_moe_speculation_card_matches_cpu(cuda, moe_impl, draft):
+    """ROADMAP A11 on the card: reduced mixtral-8x7b (window off) with a
+    ``TruncatedSelfDraft`` of one layer or of every layer (which drafts
+    the target's own tokens, so drafts are accepted and the multi-token
+    commits run), γ=3, 2 rounds a dispatch, fixed plans: the card gives
+    the CPU's tokens and accept/draft counters, B3 launches in the rounds,
+    B4 under capacity only, and no round waits for the device."""
+    cfg = dataclasses.replace(get_reduced("mixtral-8x7b"), window=None)
+    depth = 1 if draft == "one_layer" else cfg.n_layers
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, 9 + 7 * i)]
+               for i in range(4)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ex = PagedTransformerExecutor(cfg, params, num_pages=64,
+                                      page_size=16, max_pages_per_seq=8,
+                                      moe_impl=moe_impl, device=dev)
+        ex.set_draft(TruncatedSelfDraft(depth))
+        if dev == "cuda":
+            ex._spec_multi_step = _no_sync(ex._spec_multi_step)
+        world = {i: Request(i, 0.0, len(p), 9, 5.0, 5.0, tokens=p)
+                 for i, p in enumerate(prompts)}
+        b3, b4 = paged_attention.launches, moe_gmm.launches
+        counts = _spec_fixed_plans(ex, world)
+        runs[dev] = ({r: q.generated_tokens for r, q in world.items()},
+                     counts, paged_attention.launches - b3,
+                     moe_gmm.launches - b4)
+    (tok_g, cnt_g, b3_g, b4_g), (tok_c, cnt_c, b3_c, b4_c) = (
+        runs["cuda"], runs["cpu"])
+    assert tok_g == tok_c and cnt_g == cnt_c and cnt_g[1] > 0
+    assert cnt_g[0] > 0 or draft == "one_layer"
+    assert all(len(t) == 9 for t in tok_g.values())
+    assert b3_g > 0 and b3_c == b4_c == 0
+    assert (b4_g > 0) == (moe_impl == "capacity")

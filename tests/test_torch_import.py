@@ -43,8 +43,9 @@ def test_port_imports_with_jax_absent():
 
 def test_guard_covers_every_slice():
     """The scans walk the package, so each slice's modules are in them:
-    the MoE slice's model, kernel wrapper and configs included, and the
-    prefix cache, replay, cluster, fault plane and disaggregation."""
+    the MoE slice's model, kernel wrapper and configs included, the
+    prefix cache, replay, cluster, fault plane and disaggregation, and
+    the decoder families' attention, ``DecoderLM`` and config copies."""
     mods = _submodules()
     for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.mixtral_8x7b",
@@ -56,7 +57,11 @@ def test_guard_covers_every_slice():
               "repro_torch.cluster.cluster",
               "repro_torch.cluster.load_balancer",
               "repro_torch.disagg.migration", "repro_torch.disagg.router",
-              "repro_torch.disagg.pools"):
+              "repro_torch.disagg.pools", "repro_torch.models.attention",
+              "repro_torch.models.lm", "repro_torch.configs.zamba2_2_7b",
+              "repro_torch.configs.gemma3_1b",
+              "repro_torch.configs.pixtral_12b",
+              "repro_torch.configs.deepseek_67b"):
         assert m in mods, m
     assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
                                             "chip_smoke.py", "migration.py"}

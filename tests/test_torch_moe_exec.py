@@ -20,8 +20,11 @@ on the same plans, never to another mode's. Pinned:
   stream (the per-token oracle does not see the packing);
 * a fairbatching engine with VTC under the model clock decides byte for
   byte as the JAX package's, fp32 and int8 KV;
-* speculative decode is refused on a MoE target, and a MoE draft is
-  refused in both packages.
+* speculative decode on a MoE target (ROADMAP A11) with a
+  ``TruncatedSelfDraft``: through the engine under ``exact``, tokens and
+  accept/draft counters equal the JAX run's and the greedy stream; under
+  ``capacity`` on fixed plans (fp32 and int8 KV), tokens and counters equal
+  the JAX run's; a MoE draft model is refused in both packages.
 """
 import dataclasses
 
@@ -37,6 +40,7 @@ import repro_torch.engine as teng
 from repro.configs import get_reduced
 from repro.engine import numerics as jnum
 from repro.engine.spec_decode import SmallModelDraft as JaxSmallDraft
+from repro.engine.spec_decode import TruncatedSelfDraft as JaxSelfDraft
 from repro.models import ModelOpts, build_model
 from repro_torch.configs import get_reduced as torch_get_reduced
 from repro_torch.engine import numerics as tnum
@@ -305,13 +309,142 @@ def test_scheduler_trace_byte_equal_to_jax(setups, arch, kv_dtype):
     assert tok_t == tok_j
 
 
+def _spec_engine_run(core, eng_pkg, execu, draft, gamma=2, horizon=2):
+    """tests/test_torch_spec_decode.py's engine run (wall clock, SLOs loose
+    enough that the plans do not depend on it) with ``draft`` installed;
+    horizons of at most 2 rounds (the JAX engine's double finish, ROADMAP
+    §C). Returns tokens and the engine."""
+    execu.set_draft(draft)
+    eng = eng_pkg.Engine(core.make_scheduler(
+        "fairbatching", core.LinearCostModel(a=1e-4, b=1e-6, c=1e-10)),
+        execu, eng_pkg.EngineConfig(5.0, 5.0, speculate=gamma,
+                                    commit_horizon=horizon))
+    for r in _decode_requests(eng_pkg, execu.cfg.vocab, n=3, n_new=8):
+        eng.submit(r)
+    n = 0
+    while eng.has_work and n < 400:
+        eng.step()
+        n += 1
+    assert not eng.has_work
+    return {rid: list(r.generated_tokens)
+            for rid, r in eng.requests.items()}, eng
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_self_draft_speculation_matches_jax_under_exact(setups, arch):
+    """A11: a ``TruncatedSelfDraft(1)`` on a MoE target through the engine
+    (γ=2, horizons of 2 rounds): tokens, accept/draft counters, rounds and
+    bucket keys equal the JAX run's, and the tokens are the target's
+    non-speculative greedy stream."""
+    setup = setups[arch]
+    vocab = setup[0].vocab
+    tok_j, ej = _spec_engine_run(jcore, jeng, _jax(setup, num_pages=64,
+                                                   page_size=16,
+                                                   max_pages_per_seq=8),
+                                 JaxSelfDraft(1))
+    tx = _port(setup, num_pages=64, page_size=16, max_pages_per_seq=8)
+    tok_t, et = _spec_engine_run(tcore, teng, tx, TruncatedSelfDraft(1))
+    assert tok_t == tok_j
+    assert et.spec_drafted > 0
+    assert (et.spec_accepted, et.spec_drafted, et.spec_rounds) == \
+        (ej.spec_accepted, ej.spec_drafted, ej.spec_rounds)
+    assert any(k[0] == "spec" for k in tx.compile_keys)
+    assert tx.compile_keys == ej.executor.compile_keys
+    assert tx.alloc.free_blocks == 64 - 1
+    greedy, _, _ = _engine_run(tcore, teng, tnum, _port(setup),
+                               _decode_requests(teng, vocab, n=3, n_new=8))
+    assert tok_t == greedy
+
+
+def _drive_spec_plans(core, eng_pkg, execu, requests, gamma=3, rounds=2,
+                      chunk=12):
+    """Fixed plans with speculative dispatches: ``_drive_plans``'s chunked
+    prefill (decode items ride along), then, once every active request
+    decodes, ``execute_multi(speculate=gamma)`` over all of them with
+    ``rounds`` rounds, each round's tokens applied as the engine applies
+    them. The plans depend on nothing the executor computes. Returns
+    tokens, accepted and drafted drafts, and the speculative dispatches."""
+    accepted = drafted = n_spec = 0
+    steps = 0
+    while any(r.active for r in requests.values()):
+        active = [r for r in requests.values() if r.active]
+        if all(r.state is eng_pkg.RequestState.DECODE for r in active):
+            plan = core.BatchPlan([core.BatchItem(r.req_id, 1,
+                                                  core.TaskKind.DECODE)
+                                   for r in active], 0.0, 0.0, 0, 0)
+            _, rounds_out = execu.execute_multi(plan, requests, float(steps),
+                                                rounds, speculate=gamma)
+            assert not execu.last_deferred, "pool sized to never defer"
+            accepted += execu.last_spec_accepted
+            drafted += execu.last_spec_drafted
+            n_spec += 1
+            for em in rounds_out:
+                for rid, toks in em.items():
+                    if toks:
+                        requests[rid].generated_tokens.extend(toks)
+                        requests[rid].advance(len(toks), float(steps))
+        else:
+            items = []
+            for r in active:
+                if r.state is eng_pkg.RequestState.DECODE:
+                    items.append(core.BatchItem(r.req_id, 1,
+                                                core.TaskKind.DECODE))
+                else:
+                    items.append(core.BatchItem(
+                        r.req_id, min(chunk, r.prompt_len - r.prefilled),
+                        core.TaskKind.PREFILL))
+            plan = core.BatchPlan(items, 0.0, 0.0, 0, 0)
+            _, emitted = execu.execute(plan, requests, float(steps))
+            assert not execu.last_deferred, "pool sized to never defer"
+            for it in plan.items:
+                req = requests[it.req_id]
+                if it.req_id in emitted:
+                    req.generated_tokens.append(emitted[it.req_id])
+                req.advance(it.n_tokens, float(steps))
+        for r in requests.values():
+            if not r.active:
+                execu.release(r.req_id)
+        steps += 1
+    return ({rid: list(r.generated_tokens) for rid, r in requests.items()},
+            accepted, drafted, n_spec)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_self_draft_speculation_matches_jax_on_fixed_plans(setups, arch,
+                                                           kv_dtype):
+    """A11 under ``moe_impl="capacity"`` (kernel B4's path): capacity drops
+    follow the packing, so both packages run the same fixed plans — γ=3,
+    2 rounds a dispatch — and their tokens and accept/draft counters are
+    equal, fp32 and int8 KV."""
+    setup = setups[arch]
+    vocab = setup[0].vocab
+    kw = dict(moe_impl="capacity", kv_dtype=kv_dtype)
+    jx = _jax(setup, **kw)
+    jx.set_draft(JaxSelfDraft(1))
+    tx = _port(setup, **kw)
+    tx.set_draft(TruncatedSelfDraft(1))
+    before = tmg.moe_gmm.launches
+    got_j = _drive_spec_plans(jcore, jeng, jx, _requests(jeng, vocab))
+    got_t = _drive_spec_plans(tcore, teng, tx, _requests(teng, vocab))
+    assert tmg.moe_gmm.launches == before          # the CPU: plain version
+    assert got_t == got_j
+    tokens, _, drafted, n_spec = got_t
+    assert n_spec >= 2 and drafted > 0
+    assert all(len(t) == 6 for t in tokens.values())
+    assert tx.compile_keys == jx.compile_keys
+    assert tx.alloc.free_blocks == NUM_PAGES - 1
+
+
 def test_moe_target_refuses_speculative_decode(setups):
+    """A MoE target takes a ``TruncatedSelfDraft`` now (ROADMAP A11), which
+    runs the target's own MoE FFN; a MoE *draft model* is still refused
+    by ``SmallModelDraft`` in both packages (it is dense-only)."""
     setup = setups["mixtral-8x7b"]
-    ex = _port(setup)
-    with pytest.raises(NotImplementedError, match="MoE target"):
-        ex.set_draft(TruncatedSelfDraft(1))
-    assert ex.draft is None
-    # a MoE draft model is refused by both packages
+    ex = _port(setup, moe_impl="capacity")
+    draft = TruncatedSelfDraft(1)
+    ex.set_draft(draft)
+    assert ex.draft is draft and draft._ex is ex
     with pytest.raises(AssertionError):
         SmallModelDraft(setup[1], setup[3])
     with pytest.raises(AssertionError):

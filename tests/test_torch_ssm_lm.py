@@ -15,9 +15,9 @@ of 16, d_state 16, chunk 16):
 * the port's ``init_params`` builds the JAX tree (keys, shapes, std within
   25 %), ``init_cache`` the JAX zero cache; the bridge carries the SSM
   tree both ways;
-* every other family is refused: ``DecoderLM`` and ``init_params`` for the
-  dense and hybrid configs, the paged executor for the SSM config (it
-  points at ``DecoderLM``, as the JAX executor serves no SSM model).
+* the encoder-decoder is refused by ``DecoderLM`` and ``init_params``, and
+  the paged executor refuses the SSM and hybrid configs (it points at
+  ``DecoderLM``, as the JAX executor serves neither).
 """
 import dataclasses
 
@@ -132,15 +132,19 @@ def test_init_cache_is_the_jax_zero_cache(setup):
 
 
 def test_other_families_are_refused():
+    """``DecoderLM`` runs every decoder-only family now: it refuses the
+    encoder-decoder (ROADMAP A12b (iii)), and the paged executor refuses
+    the SSM and hybrid families, pointing at ``DecoderLM`` (the JAX
+    executor serves neither)."""
     dense = torch_get_reduced("stablelm-3b")
     ssm = torch_get_reduced(ARCH)
+    encdec = dataclasses.replace(dense, is_encoder_decoder=True)
     with pytest.raises(NotImplementedError, match="A12b"):
-        DecoderLM(dense, device="cpu")
+        DecoderLM(encdec, device="cpu")
     with pytest.raises(NotImplementedError, match="A12b"):
-        DecoderLM(dataclasses.replace(ssm, family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        init_params(dataclasses.replace(ssm, family="hybrid"),
-                    torch.Generator(), "cpu")
-    params = init_params(ssm, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="DecoderLM"):
-        PagedTransformerExecutor(ssm, params, device="cpu")
+        init_params(encdec, torch.Generator(), "cpu")
+    hybrid = torch_get_reduced("zamba2-2.7b")
+    for cfg in (ssm, hybrid):
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(NotImplementedError, match="DecoderLM"):
+            PagedTransformerExecutor(cfg, params, device="cpu")

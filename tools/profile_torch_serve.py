@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_serve.py [--workload serve16|decode16]
         [--horizon H] [--kv-dtype fp32|int8|fp8_e4m3]
-        [--arch h2o-danube-1.8b|mixtral-8x7b|mamba2-1.3b|...]
+        [--arch h2o-danube-1.8b|mixtral-8x7b|mamba2-1.3b|zamba2-2.7b|...]
         [--layers N] [--moe-impl exact|capacity]
         [--out build/profile/serve_trace.json]
 
@@ -44,11 +44,11 @@ to show what that check costs. Prints, as JSON lines:
 The chrome trace is written to ``--out``. Needs one CUDA card and nvcc;
 imports nothing of JAX.
 
-For an SSM arch (mamba2-1.3b) the workload is chip_smoke phase 5e (i)
-instead: ``DecoderLM.prefill`` of 8 prompts of 2048 tokens, then 64
-greedy ``decode_step``s, each ending on its tokens' copy to the host; the
-spans are ``prefill`` and ``decode_step``, and kernel B5 is the ``ssm``
-class.
+For an SSM or hybrid arch (mamba2-1.3b, zamba2-2.7b) the workload is
+chip_smoke phase 5e (i) / 5h instead: ``DecoderLM.prefill`` of 8 prompts
+of 2048 tokens, then 64 greedy ``decode_step``s, each ending on its
+tokens' copy to the host; the spans are ``prefill`` and ``decode_step``,
+and kernel B5 is the ``ssm`` class.
 """
 from __future__ import annotations
 
@@ -165,7 +165,7 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    ssm = cfg.family == "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")      # served by DecoderLM
     if ssm:       # (batch, prompt tokens, decode steps) of phase 5e (i)
         wl = cs.SSM_SERVE[0]
         go = lambda: run_ssm(cfg, params, *wl)
