@@ -7,8 +7,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc); imports nothing of JAX and
 nothing of the JAX package. Phases, each printing its own lines:
 
 1. device — the card's name and power limit as nvidia-smi gives them.
-2. build  — nvcc builds every kernel of the serving paths from
-   ``src/repro_torch/kernels/csrc`` (seconds and ptxas' resource report).
+2. build  — nvcc builds every kernel of the serving and training paths
+   from ``src/repro_torch/kernels/csrc`` (seconds and ptxas' resource
+   report).
 3. kernel vs plain — ``paged_attention_ragged`` against its plain PyTorch
    version at the serving step's shapes (h2o-danube-1.8b attention: H=32,
    Hkv=8, D=80, fp32; pages of 128 and 16): (a) a mixed step of 4 prefill
@@ -71,6 +72,16 @@ nothing of the JAX package. Phases, each printing its own lines:
    device work alone (CUDA-graph replay). After phase 5d the same check
    runs at every capacity that phase's serving run launched B4 at (its
    decode and prefill buckets): the shapes of the main path.
+3f. B4's backward vs plain — the ``MoeGmm`` Function's dx = dy · wᵀ and
+   dw = xᵀ · dy (two more B4 calls, ``moe_gmm_backward``) against
+   autograd through ``moe_gmm_ref``, at mixtral-8x7b's gate/up and down
+   shapes at (s) C=8, (t) the capacity phase 6b trains at (C=640) and
+   (u) C=960; x, w, dy ~ N(0, 0.3²). Gate: max abs error < 2e-4·√(the
+   contraction: N for dx, C for dw), the same against fp64 on the first
+   expert's first rows, a repeat bitwise equal. Timing as in 3d, of the
+   pair with the transposes' copies; the library yardstick is two
+   ``torch.bmm`` calls on the transposed views; bound = both GEMMs' bytes
+   or 4·E·C·K·N FLOPs.
 3e. SSD chunk scan vs plain — ``mamba_chunk_scan`` (B5) against
    ``mamba_chunk_scan_ref`` at mamba2-1.3b's heads (H=64, P=64, N=128),
    xdt, b, c ~ N(0, 0.3²), a = −|N(0, 1)|·0.1: (l) B=8 × 2048 tokens
@@ -234,6 +245,23 @@ nothing of the JAX package. Phases, each printing its own lines:
    per move (``migrate_serve_move``) the capture and install ms (each
    between two synchronizations), bytes and GB/s each way, and the share
    of tokens equal to a never-migrated run on the same plans.
+4j. training parity — ``DecoderLM.train_loss`` and its gradients on
+   the card and on the CPU: h2o-danube-1.8b at full width with 2 layers
+   (one 256-token sequence) under ``attn_impl="dense"`` and ``"flash"``
+   (``flash_block=64``: the flash Function's backward), and mixtral-8x7b
+   at full width with 1 layer (128 tokens) under ``capacity``; the
+   port's own weights (seed 1). Gates: loss within 1e-5 relative, every
+   gradient leaf within 1e-4 of its max |g| and nonzero wherever the
+   CPU's is (a kernel output without a backward would leave zeros), one
+   AdamW step from the CPU's gradients gives params within 1e-6 on both
+   devices, B4 launched 12 times per layer and router chunk (3 forward,
+   3 recomputed under remat, 6 backward), no other kernel.
+4k. encoder-decoder parity — seamless-m4t-large-v2 at full width (d
+   1024, vocab 256206) with 2 encoder and 2 decoder layers, the port's
+   own weights (seed 1): ``EncDecLM.prefill`` of 2 × 256 frames and 4
+   decoder tokens plus 8 greedy steps, and ``train_loss`` of 2 × (256
+   frames, 64 tokens), card and CPU. Gates: first logits within 1e-3,
+   tokens equal, 4j's gradient gates, no kernel launched.
 5e. SSM serving — mamba2-1.3b at full depth (48 layers, 5.8 GB of fp32
    weights, seed 0) through ``DecoderLM.prefill`` plus greedy
    ``decode_step``s, each step ending on its tokens' copy to the host:
@@ -254,18 +282,42 @@ nothing of the JAX package. Phases, each printing its own lines:
    5.2 GB of fp32 weights, seed 0), 5h's workload. Gates: every token in
    [0, vocab); each local layer's ring holds exactly the last 512
    positions, each global layer's all of them. Reports 5h's numbers.
+5j. encoder-decoder serving — seamless-m4t-large-v2 at full depth and
+   width (24 + 24 layers, 2.04 B params, 8.2 GB of fp32, seed 0): 8 × 2048
+   encoder frames and 4 decoder tokens through ``EncDecLM.prefill``, then
+   64 greedy steps. Gates: finite logits, every token in [0, vocab), no
+   kernel launched. Reports the prefill's seconds, the decode step's
+   median host ms, output tokens/s and peak memory.
+6a-6c. training — ``make_train_step`` from the port's own weights (seed
+   0) over one fixed batch (seed 11): 6a h2o-danube-1.8b at full depth
+   and width, AdamW, 4 × 1024 tokens, 8 steps; 6b mixtral-8x7b at full
+   width with 2 layers, Adafactor, ``capacity``, 2 × 1024 tokens, 5
+   steps; 6c seamless-m4t-large-v2 at full depth and width, AdamW, 4 ×
+   (1024 frames, 256 decoder tokens), 5 steps. A checkpoint is saved
+   after step 3 (``save_checkpoint`` under build/ckpt), then loaded onto
+   the card and the remaining steps run again. Gates: losses finite and
+   the last below the first; every step's gradient norm finite (so every
+   gradient leaf is); the resumed run's params within 1e-6 of the
+   uninterrupted run's and its losses within 1e-6 relative; B4 launched
+   12 times per layer and router chunk a step under capacity, no other
+   kernel. Reports s/step (median after the first step), tokens/s, model
+   TFLOP/s (6·N·tokens a step; N the active params, the encoder's and the
+   decoder's apart for 6c), peak memory, losses, the checkpoint's bytes
+   and save/load seconds; 6b also one profiled step's device ms and B4's
+   part of it.
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
-B2, B4, B5; launches summed over every serving phase on the card: 4, 4b,
-4c, 4d, 4h, 4e, 4i, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h (B1 and B2
-launch in 4f, 4g, 5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i); B1's
+B2, B4, B5; launches summed over every serving and training phase on the
+card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e,
+5h, 6b (B1 and B2 launch in 4f, 4g, 5f and 5g; B3 and B4 in 4h, B4 and
+B5 in 4i, B4 in 4j and 6b); B1's
 times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
 of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
 ``decode_*``; B4's at the gate/up shape of the capacity 5d launched it at
 most, with the gate/up shape of the largest capacity 5d launched as
-``prefill_*``; ``*graph_ms`` are device times alone, by CUDA-graph
+``prefill_*`` and 3f (u)'s backward pair as ``backward_*``; ``*graph_ms`` are device times alone, by CUDA-graph
 replay; B5's at 5e (i)'s shape from a zero state, with 5e (ii)'s as
 ``long_*`` and 3e (h)'s, 5h's prefill shape, as ``hybrid_*``), and the
 card's name and power limit.
@@ -311,7 +363,8 @@ from repro_torch.engine.spec_decode import (  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mamba2_scan  # noqa: E402
 from repro_torch.kernels.mamba2_scan import mamba_chunk_scan  # noqa: E402
-from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
+from repro_torch.kernels.moe_gmm import (MoeGmm, moe_gmm,  # noqa: E402
+                                         moe_gmm_backward)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
@@ -319,10 +372,17 @@ from repro_torch.kernels.quant import (  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     mamba_chunk_scan_ref, moe_gmm_ref, paged_attention_ragged_quant_ref,
     paged_attention_ragged_ref, paged_attention_ref)
-from repro_torch.models.lm import DecoderLM, ModelOpts  # noqa: E402
+from repro_torch.models.encdec import EncDecLM  # noqa: E402
+from repro_torch.models.lm import (DecoderLM, ModelOpts,  # noqa: E402
+                                   build_model)
 from repro_torch.models.moe import (  # noqa: E402
     _capacity, chunk_capacity, router_chunks)
 from repro_torch.models.weights import init_params, params_to  # noqa: E402
+from repro_torch.training import (OptConfig, apply_updates,  # noqa: E402
+                                  init_opt_state, load_checkpoint,
+                                  make_train_step, save_checkpoint)
+from repro_torch.training.optimizer import leaves  # noqa: E402
+from repro_torch.training.train_step import value_and_grad  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -1123,7 +1183,8 @@ KERNELS = {"paged_attention_ragged": paged_attention_ragged,
            "paged_attention": paged_attention,
            "paged_attention_ragged_quant": paged_attention_ragged_quant,
            "moe_gmm": moe_gmm, "mamba2_scan": mamba_chunk_scan}
-# launches of each kernel summed over every serving run on the card
+# launches of each kernel summed over every serving and training run on
+# the card
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
 
 
@@ -2062,14 +2123,6 @@ DECODER_SERVE = ((8, 2048, 64),)
 SSM_SERVE = ((8, 2048, 64), (1, 32768, 16))
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
     """Phases 5e (mamba2-1.3b, tagged ``ssm_serve``), 5h (zamba2-2.7b) and
     5i (gemma3-1b): ``cfg`` at full depth and width with fp32 weights from
@@ -2104,7 +2157,7 @@ def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
                "decode_tok_per_s": batch * steps / decode_s,
                "output_tokens": n_out,
                "output_tok_per_s": n_out / (run.prefill_s + decode_s),
-               "weight_bytes": sum(t.numel() * 4 for t in _leaves(params)),
+               "weight_bytes": sum(t.numel() * 4 for t in leaves(params)),
                "max_memory_allocated_bytes": (
                    torch.cuda.max_memory_allocated() if cuda else None),
                "ring_positions_ok": rings,
@@ -2641,6 +2694,582 @@ def phase_migrate_serve(cfg, device, params) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: B4's backward GEMMs against autograd through the plain version
+# ---------------------------------------------------------------------------
+
+# phase 6b's batch: mixtral-8x7b at B = 2 x 1024 tokens, one router chunk
+TRAIN_MOE_BATCH = (2, 1024)
+
+
+def moe_backward_steps() -> list:
+    """(name, E, C, K, N) of phase 3f: mixtral-8x7b's gate/up (K=d,
+    N=f) and down (K=f, N=d) GEMMs at (s) a decode capacity, C=8, (t) the
+    capacity phase 6b trains at and (u) a 7680-token chunk's, C=960."""
+    mix = get("mixtral-8x7b")
+    e, d, f = mix.moe.n_experts, mix.d_model, mix.moe.d_ff_expert
+    train_c = chunk_capacity(math.prod(TRAIN_MOE_BATCH), mix.moe)
+    steps = []
+    for tag, c in (("s_c8", 8), (f"t_train_c{train_c}", train_c),
+                   ("u_c960", 960)):
+        steps += [(f"{tag}_gate_up", e, c, d, f),
+                  (f"{tag}_down", e, c, f, d)]
+    return steps
+
+
+def gmm_backward_bound(e: int, c: int, k: int, n: int) -> dict:
+    """dx = dy · wᵀ and dw = xᵀ · dy: each reads its two operands once and
+    writes its output once, fp32, and does the forward's 2·E·C·K·N FLOPs
+    at the fp32 rate of the CUDA cores."""
+    nbytes = 4 * 2 * (e * c * k + e * k * n + e * c * n)
+    flops = 4 * e * c * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_moe_backward(name, e, c, k, n, w, timer, device, seed=0) -> dict:
+    """dx and dw from the ``MoeGmm`` Function (two more B4 calls) against
+    autograd through ``moe_gmm_ref``, on x and dy ~ N(0, 0.3²). Gate: max
+    abs error < 2e-4·√(contraction) (N for dx, C for dw), the same
+    against fp64 on the first expert's first rows, a repeat bitwise
+    equal. Times ``moe_gmm_backward`` (both GEMMs and the transposes'
+    copies), the plain version's two einsums and ``torch.bmm`` on the
+    transposed views."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((e, c, k), generator=g, device=device).mul_(0.3)
+    dy = torch.randn((e, c, n), generator=g, device=device).mul_(0.3)
+    xf, wf = x.detach().requires_grad_(), w.detach().requires_grad_()
+    dx, dw = torch.autograd.grad(MoeGmm.apply(xf, wf), (xf, wf), dy)
+    ex, ew = torch.autograd.grad(moe_gmm_ref(xf, wf), (xf, wf), dy)
+    del xf, wf
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    kern = lambda: moe_gmm_backward(x, w, dy)
+    plain = lambda: (moe_gmm_ref(dy, wt), moe_gmm_ref(xt, dy))
+    library = lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy))
+    if not (torch.isfinite(dx).all() and torch.isfinite(dw).all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    rows = min(c, 8)
+    exact_dx = dy[0, :rows].double() @ w[0].double().T
+    exact_dw = x[0, :, :rows].double().T @ dy[0].double()
+    tol_dx, tol_dw = 2e-4 * n ** 0.5, 2e-4 * c ** 0.5
+    again = kern()
+    rec = {"step": name, "E": e, "C": c, "K": k, "N": n,
+           "dx_max_abs_err": float((dx - ex).abs().max()),
+           "dw_max_abs_err": float((dw - ew).abs().max()),
+           "dx_tolerance": tol_dx, "dw_tolerance": tol_dw,
+           "dx_fp64_max_abs_err": float((dx[0, :rows] - exact_dx)
+                                        .abs().max()),
+           "dw_fp64_max_abs_err": float((dw[0, :rows] - exact_dw)
+                                        .abs().max()),
+           "repeat_bitwise": bool(torch.equal(again[0], dx)
+                                  and torch.equal(again[1], dw)),
+           **gmm_backward_bound(e, c, k, n)}
+    del dx, dw, ex, ew, exact_dx, exact_dw, again
+    rec["max_abs_err"] = max(rec["dx_max_abs_err"], rec["dw_max_abs_err"])
+    if (rec["dx_max_abs_err"] >= tol_dx or rec["dw_max_abs_err"] >= tol_dw
+            or rec["dx_fp64_max_abs_err"] >= tol_dx
+            or rec["dw_fp64_max_abs_err"] >= tol_dw
+            or not rec["repeat_bitwise"]):
+        _emit("moe_backward_step", rec)
+        raise AssertionError(f"{name}: B4's backward disagrees with the "
+                             f"plain version")
+    rec.update(time_in_turns(timer, kern, plain, library))
+    if x.is_cuda:
+        rec.update(graph_ms=graph_timer(kern),
+                   library_graph_ms=graph_timer(library))
+    return rec
+
+
+def phase_moe_backward(device, timer, steps=None) -> list:
+    """Phase 3f. The weights are N(0, 0.3²); one w per (E, K, N)."""
+    recs, w, w_shape = [], None, None
+    cuda = torch.device(device).type == "cuda"
+    for i, (name, e, c, k, n) in enumerate(steps or moe_backward_steps()):
+        if (e, k, n) != w_shape:
+            del w
+            if cuda:
+                torch.cuda.empty_cache()
+            g = torch.Generator(device=device).manual_seed(200 + i)
+            w = torch.randn((e, k, n), generator=g, device=device).mul_(0.3)
+            w_shape = (e, k, n)
+        recs.append(check_moe_backward(name, e, c, k, n, w, timer, device,
+                                       i))
+        _emit("moe_backward_step", recs[-1])
+    del w
+    if cuda:
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phases 4j, 4k: training and the encoder-decoder, card against CPU
+# ---------------------------------------------------------------------------
+
+# (arch, layers, tokens of one sequence, impl) of phase 4j
+TRAIN_PARITY = (("h2o-danube-1.8b", 2, 256, "dense"),
+                ("h2o-danube-1.8b", 2, 256, "flash"),
+                ("mixtral-8x7b", 1, 128, "capacity"))
+ATOL_STEP = 1e-6
+
+
+def _train_opts(impl: str) -> ModelOpts:
+    if impl == "capacity":
+        return ModelOpts(moe_impl="capacity")
+    if impl == "flash":
+        return ModelOpts(attn_impl="flash", flash_block=64)
+    return ModelOpts(attn_impl=impl)
+
+
+def counted_grads(model, params, batch) -> tuple:
+    """(loss, gradient tree, each kernel's launches): ``train_loss`` and
+    its backward, every kernel count set to 0 just before and read just
+    after; launches on the card add to ``SERVING_LAUNCHES``."""
+    for k in KERNELS.values():
+        k.launches = 0
+    loss, grads = value_and_grad(model.train_loss, params, batch)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if model.device.type == "cuda":
+        for name, c in launches.items():
+            SERVING_LAUNCHES[name] += c
+    return float(loss), grads, launches
+
+
+def compare_grads(got, want) -> dict:
+    """Each leaf's max |got - want| over its max |want| (the largest
+    reported), and how many elements are exactly 0 in ``got`` where
+    ``want``'s are not (a gradient the card lost)."""
+    worst, missing = 0.0, 0
+    for a, b in zip(leaves(got), leaves(want)):
+        a = a.cpu()
+        scale = float(b.abs().max())
+        if scale > 0:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        missing += int(((b != 0) & (a == 0)).sum())
+    return {"grad_max_rel_err": worst, "grads_lost": missing}
+
+
+def step_from(params, grads, device) -> dict:
+    """One AdamW step of ``params`` from ``grads`` (both moved to
+    ``device``), returned on the CPU."""
+    opt_cfg = OptConfig()
+    p = params_to(params, device)
+    p, _ = apply_updates(p, params_to(grads, device),
+                         init_opt_state(p, opt_cfg), opt_cfg)
+    return params_to(p, "cpu")
+
+
+def grads_parity(model_d, model_c, params, batch_d, batch_c) -> dict:
+    """4j's and 4k's comparison: loss and gradients on ``model_d``'s
+    device and on the CPU, then one AdamW step from the CPU's gradients
+    on both devices (Adam's first update is about g / |g|, so a gradient
+    element near 0 would carry its fp32 noise, amplified up to 1/eps,
+    into the params: both devices step from the same gradients)."""
+    cpu_params = params_to(params, "cpu")
+    ld, gd, launches = counted_grads(model_d, params, batch_d)
+    lc, gc_, _ = counted_grads(model_c, cpu_params, batch_c)
+    rec = {"loss": ld, "cpu_loss": lc,
+           "loss_rel_err": abs(ld - lc) / abs(lc), **compare_grads(gd, gc_),
+           "launches": launches}
+    del gd
+    sd = step_from(params, gc_, model_d.device)
+    sc = step_from(cpu_params, gc_, "cpu")
+    rec["step_params_max_abs_err"] = max(
+        float((a - b).abs().max()) for a, b in zip(leaves(sd), leaves(sc)))
+    rec["grads_ok"] = (rec["loss_rel_err"] <= 1e-5
+                       and rec["grad_max_rel_err"] <= 1e-4
+                       and rec["grads_lost"] == 0
+                       and rec["step_params_max_abs_err"] <= ATOL_STEP)
+    return rec
+
+
+def b4_train_launches(cfg, opts: ModelOpts, tokens: int, cuda: bool) -> int:
+    """B4 calls of one loss-and-gradient pass: per layer and router chunk
+    3 forward, 3 recomputed under remat, 6 backward."""
+    if cfg.moe is None or opts.moe_impl != "capacity" or not cuda:
+        return 0
+    return ((12 if opts.remat else 9) * cfg.n_layers
+            * router_chunks(tokens, cfg.moe))
+
+
+def phase_train_parity(device, cases=TRAIN_PARITY) -> list:
+    """Phase 4j: each case's config at full width, its depth cut, the
+    port's own weights (seed 1), one sequence of random tokens (seed 7):
+    ``train_loss`` and its gradients on ``device`` and on the CPU, then
+    one AdamW step. Gates: loss within 1e-5 relative, every gradient leaf
+    within 1e-4 of its max |g| and nonzero wherever the CPU's is, params
+    after the step within 1e-6, B4 launched as ``b4_train_launches``
+    says and no other kernel."""
+    cuda = torch.device(device).type == "cuda"
+    recs = []
+    for arch, layers, tokens, impl in cases:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        opts = _train_opts(impl)
+        params = init_params(cfg, torch.Generator(
+            device=device).manual_seed(1), device)
+        toks = np.random.default_rng(7).integers(0, cfg.vocab, (1, tokens))
+        rec = {"model": cfg.name, "layers": layers, "tokens": tokens,
+               "impl": impl,
+               "reduced": [f"n_layers {get(arch).n_layers} -> {layers}"],
+               **grads_parity(DecoderLM(cfg, opts, device=device),
+                              DecoderLM(cfg, opts, device="cpu"), params,
+                              {"tokens": torch.as_tensor(toks,
+                                                         device=device)},
+                              {"tokens": torch.as_tensor(toks)})}
+        want = b4_train_launches(cfg, opts, tokens, cuda)
+        rec["b4_launches_expected"] = want
+        rec["seconds"] = time.perf_counter() - t0
+        _emit("train_parity", rec)
+        if not rec["grads_ok"] or rec["launches"] != {
+                n: want if n == "moe_gmm" else 0 for n in KERNELS}:
+            raise AssertionError(f"{cfg.name} ({impl}): card and CPU "
+                                 f"train differently, or the launches are "
+                                 f"wrong")
+        recs.append(rec)
+        del params
+        if cuda:
+            _release_memory()
+    return recs
+
+
+def _encdec_inputs(cfg, batch: int, frames: int, dec: int, device,
+                   seed: int) -> dict:
+    """Encoder frames ~ N(0, 0.1²) and decoder token ids, made on
+    ``device`` from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"enc_embeds": torch.randn((batch, frames, cfg.d_model),
+                                      generator=g, device=device).mul_(0.1),
+            "dec_tokens": torch.randint(0, cfg.vocab, (batch, dec),
+                                        generator=g, device=device)}
+
+
+def generate_encdec(model, params, inputs: dict, steps: int) -> Generated:
+    """``EncDecLM``'s serving path: ``prefill`` over the encoder frames and
+    the decoder prompt, then ``steps`` greedy ``decode_step``s, each
+    ending on its tokens' copy to the host; kernel counts as in
+    ``generate``."""
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    max_len = inputs["dec_tokens"].shape[1] + steps
+    logits, cache = model.prefill(params, inputs, max_len)
+    tok = logits.argmax(-1)
+    out = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    pre = {name: k.launches for name, k in KERNELS.items()}
+    first = logits.cpu().numpy()
+    for k in KERNELS.values():
+        k.launches = 0
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = logits.argmax(-1)
+        out.append(tok.cpu())
+        step_s.append(time.perf_counter() - t)
+    dec = {name: k.launches for name, k in KERNELS.items()}
+    return Generated(torch.stack(out, 1).numpy(), first, prefill_s, step_s,
+                     pre, dec, cache)
+
+
+def phase_encdec_parity(device, layers: int = 2, steps: int = 8) -> dict:
+    """Phase 4k: seamless-m4t-large-v2 at full width with ``layers``
+    encoder and decoder layers, the port's own weights (seed 1): prefill
+    of B=2 × 256 frames and 4 decoder tokens plus ``steps`` greedy steps,
+    and ``train_loss`` of B=2 × (256 frames, 64 tokens), on ``device`` and
+    on the CPU. Gates: first logits within 1e-3, tokens equal, 4j's
+    gradient gates, no kernel launched (the encoder-decoder runs none)."""
+    t0 = time.perf_counter()
+    full = get("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(full, n_layers=layers, n_encoder_layers=layers)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    md = EncDecLM(cfg, device=device)
+    mc = EncDecLM(cfg, device="cpu")
+    inputs = _encdec_inputs(cfg, 2, 256, 4, device, seed=8)
+    with torch.no_grad():
+        d = generate_encdec(md, params, inputs, steps)
+        c = generate_encdec(mc, params_to(params, "cpu"),
+                            params_to(inputs, "cpu"), steps)
+    batch = _encdec_inputs(cfg, 2, 256, 64, device, seed=9)
+    rec = {"model": cfg.name, "enc_layers": layers, "dec_layers": layers,
+           "reduced": [f"n_layers {full.n_layers} -> {layers}",
+                       f"n_encoder_layers {full.n_encoder_layers} -> "
+                       f"{layers}"],
+           "tokens_equal_cpu": bool(np.array_equal(d.tokens, c.tokens)),
+           "first_logits_max_abs_err": float(np.abs(d.first - c.first).max()),
+           "serve_launches": {n: d.prefill_launches[n] + d.decode_launches[n]
+                              for n in KERNELS},
+           **grads_parity(md, mc, params, batch, params_to(batch, "cpu"))}
+    rec["seconds"] = time.perf_counter() - t0
+    _emit("encdec_parity", rec)
+    if (not rec["tokens_equal_cpu"] or not rec["grads_ok"]
+            or rec["first_logits_max_abs_err"] > ATOL_LOGITS
+            or any(rec["serve_launches"].values())
+            or any(rec["launches"].values())):
+        raise AssertionError("seamless: card and CPU disagree")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5j: encoder-decoder serving at full depth
+# ---------------------------------------------------------------------------
+
+ENCDEC_SERVE = (8, 2048, 4, 64)   # batch, frames, decoder prompt, steps
+
+
+def phase_encdec_serve(device, workload=ENCDEC_SERVE) -> dict:
+    """Phase 5j: seamless-m4t-large-v2 at full depth and width (24 + 24
+    layers, fp32 weights from seed 0) through ``EncDecLM.prefill`` plus
+    greedy ``decode_step``s. Gates: finite first logits, every token in
+    [0, vocab), no kernel launched. Reports the prefill's seconds, the
+    decode step's median host ms, output tokens/s and peak memory."""
+    cfg = get("seamless-m4t-large-v2")
+    cuda = torch.device(device).type == "cuda"
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    batch, frames, dec, steps = workload
+    inputs = _encdec_inputs(cfg, batch, frames, dec, device, seed=5)
+    if cuda:
+        _release_memory()
+        torch.cuda.reset_peak_memory_stats()
+    model = EncDecLM(cfg, device=device)
+    with torch.no_grad():
+        run = generate_encdec(model, params, inputs, steps)
+    decode_s = sum(run.step_s)
+    n_out = run.tokens.size
+    rec = {"model": cfg.name, "enc_layers": cfg.n_encoder_layers,
+           "dec_layers": cfg.n_layers, "batch": batch,
+           "encoder_frames": frames, "decoder_prompt": dec,
+           "decode_steps": steps, "prefill_s": run.prefill_s,
+           "prefill_frames_per_s": batch * frames / run.prefill_s,
+           "decode_step_median_ms": statistics.median(run.step_s) * 1e3,
+           "decode_tok_per_s": batch * steps / decode_s,
+           "output_tokens": n_out,
+           "output_tok_per_s": n_out / (run.prefill_s + decode_s),
+           "weight_bytes": sum(t.numel() * 4 for t in leaves(params)),
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(run.cache)),
+           "max_memory_allocated_bytes": (
+               torch.cuda.max_memory_allocated() if cuda else None)}
+    ok = (np.isfinite(run.first).all() and run.tokens.min() >= 0
+          and run.tokens.max() < cfg.vocab
+          and run.tokens.shape == (batch, steps + 1)
+          and not any(run.prefill_launches.values())
+          and not any(run.decode_launches.values()))
+    _emit("encdec_serve", rec)
+    if not ok:
+        raise AssertionError("seamless serve: bad logits, tokens or "
+                             "launches")
+    del params, run, model
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 6a-6c: training at full width
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainRun:
+    """One phase of 6: the model (config, options), the optimizer, the
+    batch (made on the device from a seed), the steps and the step after
+    which the checkpoint is saved."""
+    tag: str
+    cfg: object
+    opts: ModelOpts
+    opt: OptConfig
+    batch: tuple          # (B, S) tokens, or (B, frames, decoder tokens)
+    steps: int
+    save_after: int = 3
+
+
+def train_runs() -> list:
+    """6a h2o-danube-1.8b (every layer, AdamW, B 4 × 1024), 6b
+    mixtral-8x7b (2 layers, Adafactor, capacity, B 2 × 1024), 6c
+    seamless-m4t-large-v2 (every layer, AdamW, B 4 × (1024 frames, 256
+    decoder tokens))."""
+    return [TrainRun("6a", get("h2o-danube-1.8b"), ModelOpts(),
+                     OptConfig(name="adamw"), (4, 1024), 8),
+            TrainRun("6b", dataclasses.replace(get("mixtral-8x7b"),
+                                               n_layers=2),
+                     ModelOpts(moe_impl="capacity"),
+                     OptConfig(name="adafactor"), TRAIN_MOE_BATCH, 5),
+            TrainRun("6c", get("seamless-m4t-large-v2"), ModelOpts(),
+                     OptConfig(name="adamw"), (4, 1024, 256), 5)]
+
+
+def train_batch(run: TrainRun, device) -> dict:
+    if run.cfg.is_encoder_decoder:
+        return _encdec_inputs(run.cfg, *run.batch, device, seed=11)
+    g = torch.Generator(device=device).manual_seed(11)
+    return {"tokens": torch.randint(0, run.cfg.vocab, run.batch,
+                                    generator=g, device=device)}
+
+
+def param_counts(cfg, params) -> dict:
+    """All parameters, those a token of the decoder (or the encoder)
+    multiplies by, per ``6·N·tokens``: a MoE layer's experts count
+    top_k / E of theirs; the embedding counts, as in 6·N·tokens."""
+    total = sum(t.numel() for t in leaves(params))
+    if cfg.is_encoder_decoder:
+        enc = sum(t.numel() for t in leaves(params["enc_layers"])) + \
+            params["enc_ln_f"].numel()
+        return {"params": total, "encoder_params": enc,
+                "decoder_params": total - enc}
+    active = total
+    if cfg.moe is not None:
+        experts = sum(params["layers"]["moe"][k].numel()
+                      for k in ("w_gate", "w_up", "w_down"))
+        active -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    return {"params": total, "active_params": int(active)}
+
+
+def model_flops(cfg, counts: dict, batch: tuple) -> float:
+    """6·N·tokens of one step: decoder-only, 6 × active params × B·S; the
+    encoder-decoder, 6 × (encoder params × frames + decoder params ×
+    decoder tokens). Remat's recomputed forward is not counted."""
+    if cfg.is_encoder_decoder:
+        b, frames, dec = batch
+        return 6.0 * b * (counts["encoder_params"] * frames
+                          + counts["decoder_params"] * dec)
+    return 6.0 * counts["active_params"] * math.prod(batch)
+
+
+def trace_ms(fn, names: tuple, label: str) -> tuple:
+    """(device ms of one call of ``fn``: every kernel, copy and memset of
+    its ``torch.profiler`` trace; the part in kernels whose name holds one
+    of ``names``), the trace kept as build/profile/``label``.json."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = pathlib.Path(__file__).resolve().parent / "build" / "profile" / \
+        f"{label}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    total = sum(e["dur"] for e in events) / 1e3
+    part = sum(e["dur"] for e in events
+               if any(k in e.get("name", "") for k in names)) / 1e3
+    return total, part
+
+
+B4_KERNELS = ("gmm_tile_kernel", "gmm_stream_kernel", "splitk_reduce_kernel")
+CKPT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ckpt"
+
+
+def phase_train(run: TrainRun, device) -> dict:
+    """One of phases 6a-6c: ``make_train_step`` over one fixed batch for
+    ``run.steps`` steps from the port's own weights (seed 0), a
+    checkpoint saved after step ``save_after``; then the checkpoint is
+    loaded and the remaining steps run again. Gates: every loss finite
+    and the last below the first; every step's gradient norm finite (so
+    every gradient leaf is); the restored run's params within 1e-6 of
+    the uninterrupted run's and its losses within 1e-6 relative; B4
+    launched 12 times per layer and router chunk a step under capacity,
+    no other kernel. Reports s/step (median of the steps after the
+    first), tokens/s, model TFLOP/s, peak memory, the losses, the
+    checkpoint's bytes and save/load seconds; under capacity also one
+    profiled step's device ms and B4's part."""
+    cfg, cuda = run.cfg, torch.device(device).type == "cuda"
+    model = build_model(cfg, run.opts, device=device)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    counts = param_counts(cfg, params)
+    batch = train_batch(run, device)
+    step = make_train_step(model, run.opt)
+    opt = init_opt_state(params, run.opt)
+    ckpt = CKPT_DIR / f"{run.tag}.npz"
+    if cuda:
+        _release_memory()
+        torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    for k in KERNELS.values():
+        k.launches = 0
+    for i in range(run.steps):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+        if i + 1 == run.save_after:
+            t0 = time.perf_counter()
+            save_checkpoint(str(ckpt), {"params": params, "opt": opt},
+                            meta={"step": i + 1})
+            save_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if cuda:
+        for name, c in launches.items():
+            SERVING_LAUNCHES[name] += c
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    final = params_to(params, "cpu")
+    del params, opt
+    if cuda:
+        _release_memory()
+    t0 = time.perf_counter()
+    state = load_checkpoint(str(ckpt), device)
+    load_s = time.perf_counter() - t0
+    ckpt_bytes = ckpt.stat().st_size
+    ckpt.unlink()
+    params, opt = state["params"], state["opt"]
+    del state
+    resumed = []
+    for _ in range(run.save_after, run.steps):
+        params, opt, met = step(params, opt, batch)
+        resumed.append(float(met["loss"]))
+    restore_err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(leaves(params), leaves(final)))
+    del final
+    s = statistics.median(step_s[1:])
+    tokens = math.prod(run.batch) if not cfg.is_encoder_decoder else \
+        run.batch[0] * (run.batch[1] + run.batch[2])
+    flops = model_flops(cfg, counts, run.batch)
+    rec = {"phase": run.tag, "model": cfg.name, "layers": cfg.n_layers,
+           "optimizer": run.opt.name,
+           "moe_impl": run.opts.moe_impl if cfg.moe is not None else None,
+           "batch": list(run.batch), "steps": run.steps, **counts,
+           "losses": losses, "grad_norms": norms, "step_s": step_s,
+           "s_per_step": s, "tokens_per_s": tokens / s,
+           "model_flops_per_step": flops,
+           "model_tflop_per_s": flops / s / 1e12,
+           "max_memory_allocated_bytes": peak,
+           "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+           "load_s": load_s, "resumed_losses": resumed,
+           "restore_params_max_abs_err": restore_err,
+           "restore_bitwise": restore_err == 0.0, "launches": launches}
+    if cfg.n_layers != get(cfg.name).n_layers:
+        rec["reduced"] = [f"n_layers {get(cfg.name).n_layers} -> "
+                          f"{cfg.n_layers}"]
+    want = b4_train_launches(cfg, run.opts, math.prod(run.batch),
+                             cuda) * run.steps
+    if cuda and cfg.moe is not None:
+        total, b4 = trace_ms(lambda: step(params, opt, batch), B4_KERNELS,
+                             f"train_{run.tag}")
+        rec.update(step_device_ms=total, b4_device_ms=b4,
+                   b4_share=b4 / total if total else None)
+    _emit("train", rec)
+    ok = (all(math.isfinite(v) for v in losses + norms)
+          and losses[-1] < losses[0] and restore_err <= ATOL_STEP
+          and all(abs(a - b) <= 1e-6 * abs(b)
+                  for a, b in zip(resumed, losses[run.save_after:]))
+          and launches == {n: want if n == "moe_gmm" else 0
+                           for n in KERNELS})
+    del params, opt, model, batch
+    if not ok:
+        raise AssertionError(f"{run.tag} {cfg.name}: training failed a gate")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2668,6 +3297,7 @@ def main() -> int:
     brecs = phase_batched_kernels("cuda", cuda_timer)
     qrecs = phase_quant_kernels("cuda", cuda_timer)
     mrecs = phase_moe_kernels("cuda", cuda_timer)
+    brecs_b4 = phase_moe_backward("cuda", cuda_timer)
     srecs = phase_ssm_kernels("cuda", cuda_timer)
     hrecs = phase_ssm_kernels("cuda", cuda_timer, cfg=get("zamba2-2.7b"),
                               steps=HYBRID_SSM_STEPS)
@@ -2683,6 +3313,10 @@ def main() -> int:
                    "cuda")
     _release_memory()
     phase_decoder_parity("cuda")
+    _release_memory()
+    phase_train_parity("cuda")
+    _release_memory()
+    phase_encdec_parity("cuda")
     _release_memory()
     phase_cache_parity(small, "cuda")
     phase_migration_parity(small, "cuda")
@@ -2714,6 +3348,11 @@ def main() -> int:
     phase_decoder_serve(get("zamba2-2.7b"), "cuda")
     _release_memory()
     phase_decoder_serve(get("gemma3-1b"), "cuda")
+    _release_memory()
+    phase_encdec_serve("cuda")
+    for run in train_runs():
+        _release_memory()
+        phase_train(run, "cuda")
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     dec_rec = recs[2]             # step (b), pages of 128
@@ -2728,6 +3367,8 @@ def main() -> int:
     main_srec = srecs[0]          # step (l), zero state: 5e (i)'s shape
     long_srec = srecs[2]          # step (m), zero state: 5e (ii)'s shape
     hyb_srec = hrecs[0]           # step (h), zero state: 5h's shape
+    bwd_mrec = next(r for r in brecs_b4           # step (u), gate/up
+                    if r["step"] == "u_c960_gate_up")
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -2769,7 +3410,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:38",
         "launches": SERVING_LAUNCHES["moe_gmm"],
-        "max_abs_err": max(r["max_abs_err"] for r in mrecs),
+        "max_abs_err": max(r["max_abs_err"] for r in mrecs + brecs_b4),
         "ms": main_mrec["ms"], "plain_ms": main_mrec["plain_ms"],
         "bound_ms": main_mrec["bound_ms"], "bound_by": main_mrec["bound_by"],
         "library_ms": main_mrec["library_ms"],
@@ -2778,7 +3419,13 @@ def main() -> int:
         "prefill_library_ms": pre_mrec["library_ms"],
         "prefill_graph_ms": pre_mrec["graph_ms"],
         "prefill_library_graph_ms": pre_mrec["library_graph_ms"],
-        "prefill_bound_ms": pre_mrec["bound_ms"]}, {
+        "prefill_bound_ms": pre_mrec["bound_ms"],
+        "backward_C": bwd_mrec["C"], "backward_ms": bwd_mrec["ms"],
+        "backward_plain_ms": bwd_mrec["plain_ms"],
+        "backward_graph_ms": bwd_mrec["graph_ms"],
+        "backward_bound_ms": bwd_mrec["bound_ms"],
+        "backward_library_ms": bwd_mrec["library_ms"],
+        "backward_library_graph_ms": bwd_mrec["library_graph_ms"]}, {
         "name": "mamba2_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan.py:64",

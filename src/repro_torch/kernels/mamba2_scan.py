@@ -18,6 +18,12 @@ Tensors on the CPU take the plain version (``ref.mamba_chunk_scan_ref``);
 tensors on a CUDA device launch the kernel or raise — there is no
 fallback. ``mamba_chunk_scan.launches`` counts the kernel's calls (one per
 call, whose four launches run on the current stream), and nothing else.
+
+B5 has no backward (ROADMAP B8; the JAX package has none either: its
+training differentiates the einsum ``ssd_chunked``). On a CUDA device,
+with grad mode on and an input that requires grad, the wrapper raises
+``NotImplementedError`` rather than return a result detached from the
+graph.
 """
 from __future__ import annotations
 
@@ -187,6 +193,12 @@ def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
         return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state)
     if xdt.device.type != "cuda":
         raise ValueError(f"no mamba_chunk_scan for {xdt.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xdt, a_dt, b, c, init_state)):
+        raise NotImplementedError(
+            "mamba_chunk_scan has no backward kernel yet (ROADMAP B8): the "
+            "SSM and hybrid families do not train on the card")
     _check(xdt, a_dt, b, c, init_state)
     bsz, nc, l, h, p = xdt.shape
     n = b.shape[-1]

@@ -15,6 +15,16 @@ a CUDA device launch the kernel or raise — there is no fallback.
 ``moe_gmm.launches`` counts the kernel's calls (one per call, whose one or
 two launches — the GEMM and, with split K, the sum of the parts — run on
 the current stream), and nothing else.
+
+``MoeGmm`` is the differentiable form, a ``torch.autograd.Function`` whose
+backward is B4 again: dx = dy · wᵀ as (E, C, N) · (E, N, K) and dw = xᵀ ·
+dy as (E, K, C) · (E, C, N), the capacity C the contraction. The
+transposes are contiguous copies made for the call (one mixtral-8x7b
+w_gate or w_up transposed is 1.88 GB, freed when the call returns). On
+the CPU the same Function runs over the plain version, so autograd
+differentiates the path the card runs. The JAX kernel has no backward of
+its own: its training differentiates the einsum, which XLA lowers to two
+more GEMMs of the same shapes.
 """
 from __future__ import annotations
 
@@ -170,3 +180,31 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 moe_gmm.launches = 0
+
+
+def moe_gmm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     need_dx: bool = True, need_dw: bool = True):
+    """The gradients of ``moe_gmm(x, w)`` for the output gradient ``dy``
+    (E, C, N): (dx (E, C, K) = dy · wᵀ, dw (E, K, N) = xᵀ · dy), each one
+    ``moe_gmm`` call on contiguous copies of the transposes, or None where
+    not needed."""
+    dy = dy.contiguous()
+    dx = moe_gmm(dy, w.transpose(1, 2).contiguous()) if need_dx else None
+    dw = moe_gmm(x.transpose(1, 2).contiguous(), dy) if need_dw else None
+    return dx, dw
+
+
+class MoeGmm(torch.autograd.Function):
+    """``moe_gmm`` with its backward on ``moe_gmm`` (``moe_gmm_backward``):
+    each of dx and dw is one more call (one launch count) when its input
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return moe_gmm_backward(x, w, dy, *ctx.needs_input_grad)

@@ -15,7 +15,7 @@ import torch
 
 from . import ref
 from .mamba2_scan import mamba_chunk_scan
-from .moe_gmm import moe_gmm
+from .moe_gmm import MoeGmm
 from .paged_attention import (paged_attention, paged_attention_ragged,
                               paged_attention_ragged_quant)
 
@@ -77,8 +77,10 @@ def paged_attention_ragged_quant_op(q, k_pages, v_pages, k_scales, v_scales,
 def moe_gmm_op(x, w):
     """(E, C, K) × (E, K, N) batched expert GEMM — the capacity-dispatch MoE
     FFN's gate, up and down projections. Kernel B4 masks the ragged edges,
-    so C, K and N are not padded to 128 as on the TPU."""
-    return moe_gmm(x, w)
+    so C, K and N are not padded to 128 as on the TPU. Differentiable
+    (``MoeGmm``: the two backward GEMMs are B4 too); without grad it is
+    one ``moe_gmm`` call."""
+    return MoeGmm.apply(x, w)
 
 
 def mamba_chunk_scan_op(xdt, a_dt, b, c, init_state=None):

@@ -15,9 +15,19 @@ The JAX functions are plain XLA ops, not a Pallas kernel, and so are these:
 online softmax where JAX scans. The block structure is kept so that the
 log-sum-exp, the ``-1e30`` masking and the banded slicing are the
 reference's. ``merge_partial_attention`` is the one the split-KV kernel
-references use (``kernels/ref.py``). ``flash_attention`` is forward only:
-its custom VJP (``src/repro/models/attention.py:126-185``) and the
-``unroll`` switch of the costing parts come with training (ROADMAP A14).
+references use (``kernels/ref.py``).
+
+``flash_attention`` is differentiable: ``FlashAttention``, a
+``torch.autograd.Function``, is the port of the JAX custom VJP
+(``_flash_vjp_fwd``/``_flash_vjp_bwd``), a FlashAttention-2-style backward
+that keeps q, k, v, the positions, the output and the log-sum-exp and
+recomputes each KV block's probabilities from the log-sum-exp, so nothing
+of size (Tq, Tk) outlives a block. Its scores are the forward's, the
+pre-scaled query times the keys, so that the recomputed probabilities are
+the forward's to the last bit; the scale then enters dq and dk once, as
+JAX's ``ds · scale`` does. ``flash_attention_with_lse`` and
+``flash_attention_banded`` stay forward only, as in JAX. The ``unroll``
+switch of the JAX costing parts has no counterpart (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -113,14 +123,74 @@ def _flash_fwd_impl(q, k, v, q_pos, kv_pos, causal, window, block, scale):
     return out.to(q.dtype), lse
 
 
+def _blocks(t: torch.Tensor, nb: int, block: int, fill=0) -> torch.Tensor:
+    """Dim 1 of ``t`` padded with ``fill`` to ``nb`` whole blocks."""
+    pad = nb * block - t.shape[1]
+    if not pad:
+        return t
+    spec = (0, 0) * (t.dim() - 2) + (0, pad)
+    return F.pad(t, spec, value=fill)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with the JAX package's recomputing backward.
+
+    Forward saves (q, k, v, q_pos, kv_pos, out, lse); backward walks the
+    same KV blocks (the last padded with invalid slots), with delta =
+    sum(dO · O) per query row: p = exp(s - lse) masked, dV = pᵀ dO, dP =
+    dO Vᵀ, dS = p (dP - delta), dQ += dS K · scale, dK = dSᵀ Q · scale.
+    The positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, block, scale):
+        out, lse = _flash_fwd_impl(q, k, v, q_pos, kv_pos, causal, window,
+                                   block, scale)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.opts = (causal, window, block, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        causal, window, block, scale = ctx.opts
+        b, tq, h, d = q.shape
+        tk, hkv = k.shape[1], k.shape[2]
+        g = h // hkv
+        nb = -(-tk // block)
+        kp, vp = _blocks(k, nb, block), _blocks(v, nb, block)
+        posp = _blocks(kv_pos, nb, block, fill=-1)
+        qs = _split_gqa(q, hkv).float() * scale      # the forward's scores
+        do = _split_gqa(dout, hkv).float()
+        lse_r = lse.reshape(b, tq, hkv, g)
+        delta = (do * _split_gqa(out, hkv).float()).sum(-1)   # (B,Tq,Hkv,G)
+        dq = torch.zeros((b, tq, hkv, g, d), device=q.device)
+        dks, dvs = [], []
+        for i in range(nb):
+            blk = slice(i * block, (i + 1) * block)
+            k_b, v_b = kp[:, blk].float(), vp[:, blk].float()
+            s = torch.einsum("bthgd,bshd->bthgs", qs, k_b)
+            msk = attn_mask(q_pos, posp[:, blk], causal=causal,
+                            window=window)[:, :, None, None]
+            p = torch.where(msk, torch.exp(s - lse_r[..., None]), 0.0)
+            dvs.append(torch.einsum("bthgs,bthgd->bshd", p, do))
+            dp = torch.einsum("bthgd,bshd->bthgs", do, v_b)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bthgs,bshd->bthgd", ds, k_b) * scale
+            dks.append(torch.einsum("bthgs,bthgd->bshd", ds, qs))
+        dk = torch.cat(dks, 1)[:, :tk]
+        dv = torch.cat(dvs, 1)[:, :tk]
+        return (dq.reshape(b, tq, h, d).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None, None)
+
+
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                     window: Optional[int] = None, block: int = 512,
                     scale: Optional[float] = None):
-    """Blocked flash attention, forward only. Shapes as
-    ``dense_attention``."""
+    """Differentiable blocked flash attention (``FlashAttention``). Shapes
+    as ``dense_attention``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _flash_fwd_impl(q, k, v, q_pos, kv_pos, causal, window, block,
-                           scale)[0]
+    return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                block, scale)
 
 
 def flash_attention_with_lse(q, k, v, q_pos, kv_pos, *, causal: bool = True,

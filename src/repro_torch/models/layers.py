@@ -12,10 +12,10 @@ Position-array-driven masking (``attention.py``) makes ring order
 irrelevant to correctness — slots carry their global positions, the mask
 does the rest. A decode step writes its token into the cache in place,
 where JAX's ``.at[].set`` returns new arrays (the serving path donates the
-cache, so XLA updates it in place too). ``cross_attn_apply`` comes with the
-encoder-decoder (ROADMAP A12b (iii)); the parameter initializers are
-subtrees of ``weights.init_params``; there are no sharding constraints (the
-port has no mesh, ROADMAP A13).
+cache, so XLA updates it in place too). ``cross_attn_apply`` is the
+encoder-decoder's cross-attention over the encoder memory; the parameter
+initializers are subtrees of ``weights.init_params``; there are no sharding
+constraints (the port has no mesh, ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -119,25 +119,27 @@ def attn_qkv(p: dict, h: torch.Tensor, positions: torch.Tensor,
 
 def attn_seq(p, x, positions, cfg: ArchConfig, *, window: Optional[int],
              ln_w, impl: str = "flash", flash_block: int = 512,
-             cache_width: Optional[int] = None):
-    """Full-sequence causal attention (whole-prompt prefill): under
-    ``flash`` a windowed layer takes the banded path, as JAX's serving
-    forward does (its unbanded windowed flash belongs to training, ROADMAP
-    A14; the non-causal form to the encoder, A12b (iii)).
+             banded: bool = False, cache_width: Optional[int] = None,
+             causal: bool = True):
+    """Full-sequence attention (train / whole-prompt prefill / the
+    encoder's non-causal pass). Under ``flash`` a causal windowed layer
+    takes the banded path only when ``banded`` (the prefill path, which is
+    forward only); in training it runs the differentiable windowed flash.
 
     Returns (residual output, (k_ring, v_ring, kv_pos) if cache_width else
     None).
     """
     h = rmsnorm(x, ln_w, cfg.norm_eps)
     q, k, v = attn_qkv(p, h, positions, cfg)
-    if impl == "flash" and window:
+    if impl == "flash" and banded and window and causal:
         o = flash_attention_banded(q, k, v, positions, positions,
                                    window=window, block=flash_block)
     elif impl == "flash":
-        o = flash_attention(q, k, v, positions, positions, window=window,
-                            block=flash_block)
+        o = flash_attention(q, k, v, positions, positions, causal=causal,
+                            window=window, block=flash_block)
     else:
-        o = dense_attention(q, k, v, positions, positions, window=window)
+        o = dense_attention(q, k, v, positions, positions, causal=causal,
+                            window=window)
     out = o.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
     new_cache = None
     if cache_width is not None:
@@ -157,3 +159,18 @@ def attn_decode(p, x, positions, cfg: ArchConfig, *, window: Optional[int],
                         positions, kv_pos, causal=True, window=window)
     out = o.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"].to(x.dtype)
     return x + out, (cache_k, cache_v, kv_pos)
+
+
+def cross_attn_apply(p, x, memory_kv, memory_pos, positions,
+                     cfg: ArchConfig, ln_w):
+    """Cross-attention for the encoder-decoder's decoder: x (B, T, d)
+    against the encoder memory's precomputed (k, v) (B, S_enc, Hkv, Dh) at
+    ``memory_pos`` (B, S_enc), non-causal."""
+    h = rmsnorm(x, ln_w, cfg.norm_eps)
+    b, t, _ = h.shape
+    q = (h @ p["wq"].to(h.dtype)).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k, v = memory_kv
+    o = dense_attention(q, k.to(x.dtype), v.to(x.dtype), positions,
+                        memory_pos, causal=False)
+    out = o.reshape(b, t, cfg.q_dim) @ p["wo"].to(x.dtype)
+    return x + out

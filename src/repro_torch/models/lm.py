@@ -2,12 +2,19 @@
 PyTorch.
 
 Port of ``src/repro/models/lm.py``'s ``DecoderLM``: one class, four family
-paths, the JAX package's three serving entry points.
+paths, the JAX package's three entry points.
 
   * families: uniform transformer (dense / moe / vlm), ssm (mamba2), hybrid
     (zamba2: mamba backbone + one weight-shared attention block after every
     ``attn_period`` Mamba2 blocks), with per-layer windows (gemma3
     local:global) on the unrolled path;
+  * ``train_loss(params, batch)`` — the full sequence (tokens, or
+    ``embeds`` with ``labels`` and an optional ``mask``) through every
+    layer, each checkpointed under ``remat`` (``torch.utils.checkpoint``
+    where JAX uses ``jax.checkpoint``), then ``chunked_ce_loss``. Windowed
+    layers run the unbanded windowed flash here, as JAX trains them; only
+    the prefill bands. The SSM and hybrid families raise
+    ``NotImplementedError``: B5 has no backward kernel yet (ROADMAP B8);
   * ``prefill(params, inputs, max_len)`` — whole prompt (tokens (B, S), or
     ``{"embeds": (B, S, d)}`` for the VLM backbone) → last logits and the
     cache: ring KV caches of width ``min(window, max_len)`` per attention
@@ -18,8 +25,10 @@ paths, the JAX package's three serving entry points.
 
 Kernels on the card: every Mamba2 block's prefill chunk scan is kernel B5
 (``mamba2.ssd_chunked``), and the MoE FFN under ``moe_impl="capacity"``
-runs its three expert GEMMs on kernel B4 (``moe.moe_capacity``). Attention
-is ``attention.py``'s plain tensor ops, as the JAX model's is plain XLA.
+runs its three expert GEMMs on kernel B4 (``moe.moe_capacity``), in
+training also their backward GEMMs (``kernels.moe_gmm.MoeGmm``).
+Attention is ``attention.py``'s plain tensor ops, as the JAX model's is
+plain XLA.
 
 Cache layouts are the JAX package's: stacked ``{"k", "v": (L, B, W, Hkv,
 Dh), "kv_pos": (B, W)}`` with one shared ``kv_pos`` when the layers are
@@ -30,10 +39,10 @@ of ``{"k", "v", "kv_pos"}`` with per-layer widths when unrolled (gemma3's
 B, W)}}`` with one attention cache per shared-block application.
 ``constrain`` is the identity: the port has no mesh (ROADMAP A13).
 ``DecoderLM(cfg, opts, device=None)`` runs on the card unless the caller
-asks for the CPU (``_device.resolve_device``). Not ported: ``train_loss``,
-``chunked_ce_loss``, ``axes``/``cache_axes`` and the remat and costing
-options (ROADMAP A13, A14); the encoder-decoder raises
-``NotImplementedError`` (ROADMAP A12b (iii)).
+asks for the CPU (``_device.resolve_device``); ``build_model`` returns the
+encoder-decoder's ``encdec.EncDecLM`` for seamless-m4t-large-v2. Not
+ported: ``axes``/``cache_axes`` and the costing options (ROADMAP A13,
+A14).
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
@@ -55,8 +65,8 @@ FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 @dataclasses.dataclass
 class ModelOpts:
-    """The serving options of the JAX ``ModelOpts``. Every dtype is fp32,
-    as the JAX executor and model serve: another dtype raises
+    """The JAX ``ModelOpts`` but for the costing switches. Every dtype is
+    fp32, as the JAX executor and model serve: another dtype raises
     ``TypeError`` (bf16 is ROADMAP B6, the training dtypes A14)."""
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -64,6 +74,8 @@ class ModelOpts:
     attn_impl: str = "auto"        # dense | flash | auto
     flash_block: int = 512
     moe_impl: str = "capacity"     # capacity | exact
+    remat: bool = True             # checkpoint each layer in train_loss
+    ce_chunk: int = 512            # tokens per chunked-CE block
     scan_layers: bool = True       # False → per-layer cache list
 
     def __post_init__(self):
@@ -105,9 +117,8 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOpts] = None,
                  device: DeviceLike = None):
         if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name} is an encoder-decoder: EncDecLM is not ported "
-                f"yet (ROADMAP A12b (iii))")
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"as EncDecLM (build_model does)")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"DecoderLM runs the {', '.join(FAMILIES)} families; "
@@ -135,9 +146,11 @@ class DecoderLM:
         return params["embed"].float()[toks.long()]
 
     def _layer_seq(self, lp, x, positions, window, cache_width, impl):
+        # banded SWA flash on the (no-grad) prefill path only
         x, kv = L.attn_seq(lp["attn"], x, positions, self.cfg, window=window,
                            ln_w=lp["ln1"], impl=impl,
                            flash_block=self.opts.flash_block,
+                           banded=cache_width is not None,
                            cache_width=cache_width)
         return L.layer_ffn(self.cfg, lp, x, self.opts.moe_impl), kv
 
@@ -159,9 +172,18 @@ class DecoderLM:
     # forward: uniform transformer stacks
     # ------------------------------------------------------------------
 
-    def _uniform_seq(self, params, x, positions, max_len):
+    def _uniform_seq(self, params, x, positions, max_len, mode="prefill"):
+        """Every layer over ``x``; ``mode`` "prefill" also returns the
+        caches, "train" returns None for them and, under ``remat``,
+        checkpoints each layer."""
         cfg, layers = self.cfg, params["layers"]
         impl = _auto_impl(self.opts, x.shape[1])
+        if mode == "train":
+            for i in range(cfg.n_layers):
+                x = remat_call(self.opts.remat, self._train_layer,
+                               _layer(layers, i), x, positions,
+                               cfg.layer_window(i), impl)
+            return x, None
         caches = []
         for i in range(cfg.n_layers):
             # layer_window(i) is cfg.window unless local:global forces
@@ -174,6 +196,9 @@ class DecoderLM:
             return x, caches
         stacked = _stack([{"k": c["k"], "v": c["v"]} for c in caches])
         return x, {**stacked, "kv_pos": caches[0]["kv_pos"]}
+
+    def _train_layer(self, lp, x, positions, window, impl):
+        return self._layer_seq(lp, x, positions, window, None, impl)[0]
 
     def _uniform_decode(self, params, x, positions, cache):
         cfg, layers = self.cfg, params["layers"]
@@ -319,6 +344,30 @@ class DecoderLM:
             new_cache = {"pos": pos + 1, "kv": new}
         return self._head(params, x[:, 0]), new_cache
 
+    def train_loss(self, params, batch):
+        """batch: {'tokens' (B, S) | 'embeds' (B, S, d), optional 'labels'
+        (B, S), optional 'mask' (B, S)} → the mean next-token cross-entropy
+        (a 0-d fp32 tensor). Without labels the tokens shifted by one are
+        the targets."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) does not train in the port: its "
+                f"Mamba2 chunk scan (B5) has no backward kernel yet (ROADMAP "
+                f"B8)")
+        x = self._embed(params, batch)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        h, _ = self._uniform_seq(params, x, positions, s, mode="train")
+        if "labels" in batch:
+            labels, mask = batch["labels"], batch.get("mask")
+        else:
+            labels, mask = batch["tokens"][:, 1:], None
+            h = h[:, :-1]
+        return chunked_ce_loss(params["head"], params["ln_f"], h, labels,
+                               mask, cfg, self.opts.ce_chunk)
+
     def init_cache(self, batch: int, max_len: int):
         """Zero cache (engine restore path / decode-only lowering)."""
         cfg, dev = self.cfg, self.device
@@ -350,8 +399,46 @@ class DecoderLM:
         return cache
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed when ``remat`` and grad mode is on: its
+    activations are recomputed in the backward pass instead of kept
+    (``jax.checkpoint``). Nothing is checkpointed without grad."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_nll(h, y, head):
+    """Per-token negative log-likelihood of one chunk: h (n, d), y (n,)."""
+    logits = h.float() @ head                             # (n, V)
+    gold = logits.gather(1, y[:, None].long())[:, 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def chunked_ce_loss(head, ln_f, hidden, labels, mask, cfg: ArchConfig,
+                    chunk: int):
+    """Cross-entropy without materializing (B, S, V) logits: the tokens
+    in chunks of ``chunk``, each chunk's logits recomputed in the backward
+    pass (``torch.utils.checkpoint``, as JAX checkpoints the ``lax.map``
+    body), so at most one chunk's (chunk, V) logits live at a time. The
+    mean over the mask's tokens (all tokens without one)."""
+    b, s, d = hidden.shape
+    h = rmsnorm(hidden, ln_f, cfg.norm_eps).reshape(b * s, d)
+    y = labels.reshape(b * s)
+    m = (torch.ones(b * s, device=h.device) if mask is None
+         else mask.reshape(b * s).float())
+    headf = head.float()
+    nll = torch.cat([remat_call(True, _chunk_nll, h[i:i + chunk],
+                                y[i:i + chunk], headf)
+                     for i in range(0, b * s, chunk)])
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
 def build_model(cfg: ArchConfig, opts: Optional[ModelOpts] = None,
-                device: DeviceLike = None) -> DecoderLM:
-    """The counterpart of the JAX ``build_model`` for the decoder-only
-    families; an encoder-decoder raises (ROADMAP A12b (iii))."""
+                device: DeviceLike = None):
+    """The counterpart of the JAX ``build_model``: ``EncDecLM`` for an
+    encoder-decoder, else ``DecoderLM``."""
+    if cfg.is_encoder_decoder:
+        from .encdec import EncDecLM   # encdec imports this module
+        return EncDecLM(cfg, opts, device)
     return DecoderLM(cfg, opts, device)

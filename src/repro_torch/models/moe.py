@@ -14,9 +14,14 @@ softmaxed over the selected experts.
   the CPU), weighted combine. Token-chunked at ``router_chunk`` by a Python
   loop where the JAX package uses ``lax.map``.
 
+The capacity path is differentiable: ``moe_gmm_op`` is the ``MoeGmm``
+Function, so in training B4 also runs the two backward GEMMs of each
+expert GEMM.
+
 What differs from the JAX package, none of it changing a value: no
 ``constrain`` sharding hints (the port is single-device until ROADMAP A13)
-and no ``jax.checkpoint`` (serving only); ties in the router's top-k go to
+and no ``jax.checkpoint`` around each router chunk (``DecoderLM``
+checkpoints whole layers under ``remat``); ties in the router's top-k go to
 the lower expert id, by a stable descending sort, as ``lax.top_k`` gives
 them; each expert's first sorted slot comes from a search of the sorted ids
 instead of a scatter-add of counts; and the combine adds each token's kept

@@ -9,7 +9,10 @@ w_up (E, d, f), w_down (E, f, d)}`` (MoE, ``init_moe_params``); for the SSM
 and hybrid families ``mamba.{in_proj, conv_w, conv_b, A_log, D, dt_bias,
 norm_w, out_proj}`` (``mamba2.init_mamba_params``) and ``ln``. The hybrid
 family (zamba2) adds one weight-shared attention block, unstacked:
-``shared.{attn, ln1, mlp, ln2}``.
+``shared.{attn, ln1, mlp, ln2}``. The encoder-decoder (seamless-m4t-
+large-v2, ``encdec.EncDecLM``) has ``embed``, ``enc_layers.{attn, ln1,
+mlp, ln2}``, ``enc_ln_f``, ``dec_layers.{attn, ln1, cross, lnx, mlp,
+ln2}`` (``cross`` an attention block), ``ln_f`` and ``head``.
 
 * ``params_from_numpy`` carries a JAX parameter tree across as numpy
   arrays (``jax.tree.map(np.asarray, params)``), so both packages compute
@@ -18,7 +21,8 @@ family (zamba2) adds one weight-shared attention block, unstacked:
 * ``init_params`` is the port's own initializer, drawing the same
   distributions as the JAX one (normal × 1/sqrt(fan_in), embed × 0.02, zero
   norms; MoE weights as ``init_moe_params``; Mamba2 weights as
-  ``init_mamba_params``) from a ``torch.Generator``.
+  ``init_mamba_params``; the encoder-decoder's as ``EncDecLM.init``) from a
+  ``torch.Generator``.
   It is for runs without JAX, such as
   ``chip_smoke.py`` at full width, and never decides a parity result.
 """
@@ -60,17 +64,16 @@ def params_to(params: dict, device) -> dict:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
-    """Random fp32 parameters for a decoder-only ``cfg`` (dense, MoE, VLM,
-    SSM or hybrid); the generator must live on ``device``."""
+    """Random fp32 parameters for ``cfg`` (dense, MoE, VLM, SSM, hybrid or
+    the encoder-decoder); the generator must live on ``device``."""
     uniform = cfg.family in ("dense", "moe", "vlm") and cfg.ssm is None
     mamba = (cfg.ssm is not None and (cfg.family == "ssm" or (
         cfg.family == "hybrid" and cfg.attn_period is not None)))
-    if cfg.is_encoder_decoder or not (uniform or mamba):
+    encdec = cfg.is_encoder_decoder and cfg.moe is None and cfg.ssm is None
+    if not (uniform or mamba or encdec):
         raise NotImplementedError(
-            f"init_params covers the decoder-only families (dense, MoE, VLM, "
-            f"SSM, hybrid); {cfg.name} is {cfg.family}"
-            f"{', an encoder-decoder' if cfg.is_encoder_decoder else ''} "
-            f"(the encoder-decoder: ROADMAP A12b (iii))")
+            f"init_params covers the dense, MoE, VLM, SSM, hybrid and "
+            f"encoder-decoder families; {cfg.name} is {cfg.family}")
     dev = torch.device(device)
     d, n = cfg.d_model, cfg.n_layers
 
@@ -99,6 +102,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     # drawn in the order of the tree: embed, head, then the layers
     params = {"embed": normal((cfg.vocab, d), 0.02), "ln_f": zeros((d,)),
               "head": normal((d, cfg.vocab), sd)}
+    if cfg.is_encoder_decoder:
+        ne = cfg.n_encoder_layers
+        params["enc_layers"] = {"attn": attn((ne,)), "ln1": zeros((ne, d)),
+                                "mlp": mlp((ne,)), "ln2": zeros((ne, d))}
+        params["enc_ln_f"] = zeros((d,))
+        params["dec_layers"] = {"attn": attn((n,)), "ln1": zeros((n, d)),
+                                "cross": attn((n,)), "lnx": zeros((n, d)),
+                                "mlp": mlp((n,)), "ln2": zeros((n, d))}
+        return params
     if cfg.family in ("ssm", "hybrid"):
         params["layers"] = {
             "mamba": init_mamba_params(cfg, generator, dev, lead=(n,)),

@@ -1,0 +1,13 @@
+"""Training of the port: the optimizers (AdamW, Adafactor), the train step
+(loss → grad → clip → update, with gradient accumulation) and flat-path
+``.npz`` checkpoints that the JAX package reads and writes too. Port of
+``src/repro/training``; ``opt_axes`` and ``grad_shardings`` wait for the
+mesh (ROADMAP A13)."""
+from .checkpoint import load_checkpoint, load_meta, save_checkpoint
+from .optimizer import (OptConfig, apply_updates, clip_by_global_norm,
+                        global_norm, init_opt_state)
+from .train_step import make_train_step
+
+__all__ = ["OptConfig", "init_opt_state", "apply_updates", "global_norm",
+           "clip_by_global_norm", "make_train_step", "save_checkpoint",
+           "load_checkpoint", "load_meta"]

@@ -58,6 +58,13 @@ CPU's greedy tokens (B5 once per Mamba2 block in zamba2's prefill), and a
 MoE target speculates with a ``TruncatedSelfDraft`` of one layer and of
 every layer (which accepts drafts) on fixed plans with the CPU's tokens
 and accept/draft counters, under both ``moe_impl``s.
+Training: B4's ``MoeGmm`` Function gives dx and dw (two more B4 launches)
+within 2e-4·√(contraction) of autograd through the plain version; a
+2-layer reduced mixtral-8x7b train step under ``capacity`` (and h2o-
+danube-1.8b under flash) gives the CPU's loss, gradients (nonzero where
+the CPU's are) and updated params, B4 launching 12 times per layer and
+router chunk (3 forward, 3 recomputed, 6 backward); B5 refuses to run
+under grad (no backward kernel yet, ROADMAP B8).
 """
 import dataclasses
 
@@ -76,7 +83,7 @@ from repro_torch.engine import (Engine, EngineConfig,
 from repro_torch.engine.numerics import ModelTimedExecutor
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
 from repro_torch.kernels.mamba2_scan import mamba_chunk_scan
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import MoeGmm, moe_gmm
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (kv_quant_spec, quantize_kv, raw_pool,
@@ -85,9 +92,13 @@ from repro_torch.kernels.ref import (mamba_chunk_scan_ref, moe_gmm_ref,
                                      paged_attention_ragged_quant_ref,
                                      paged_attention_ragged_ref,
                                      paged_attention_ref)
-from repro_torch.models import build_model, init_params
+from repro_torch.models import ModelOpts, build_model, init_params
 from repro_torch.models.moe import moe_capacity, router_chunks
 from repro_torch.models.weights import params_to
+from repro_torch.training import (OptConfig, apply_updates,
+                                  init_opt_state)
+from repro_torch.training.optimizer import leaves
+from repro_torch.training.train_step import value_and_grad
 
 ATOL = 1e-4
 # card vs CPU logits under quantized KV: K/V rows that differ by fp32
@@ -1257,3 +1268,81 @@ def test_moe_speculation_card_matches_cpu(cuda, moe_impl, draft):
     assert all(len(t) == 9 for t in tok_g.values())
     assert b3_g > 0 and b3_c == b4_c == 0
     assert (b4_g > 0) == (moe_impl == "capacity")
+
+
+# (E, C, K, N): mixtral's gate/up and down at a decode and a prefill
+# capacity, and ragged edges
+GMM_GRAD_SHAPES = [(8, 8, 4096, 14336), (8, 160, 14336, 4096),
+                   (3, 20, 96, 72), (2, 33, 100, 132)]
+
+
+@pytest.mark.parametrize("shape", GMM_GRAD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_gmm_backward_matches_plain_version(cuda, shape):
+    e, c, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((e, c, k), generator=g, device=cuda).mul_(0.3)
+    w = torch.randn((e, k, n), generator=g, device=cuda).mul_(0.3)
+    dy = torch.randn((e, c, n), generator=g, device=cuda).mul_(0.3)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = moe_gmm.launches
+    dx, dw = torch.autograd.grad(
+        MoeGmm.apply(x.requires_grad_(), w.requires_grad_()), (x, w), dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 3
+    ex, ew = torch.autograd.grad(moe_gmm_ref(xr, wr), (xr, wr), dy)
+    assert float((dx - ex).abs().max()) < 2e-4 * n ** 0.5
+    assert float((dw - ew).abs().max()) < 2e-4 * c ** 0.5
+    del x, w, dy, dx, dw, ex, ew, xr, wr
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch, impl", [("mixtral-8x7b", "capacity"),
+                                        ("h2o-danube-1.8b", "flash")])
+def test_train_step_card_matches_cpu(cuda, arch, impl):
+    """Reduced config at 2 layers, the port's weights, on the card and on
+    the CPU. Loss within 1e-5 relative; every gradient leaf within 1e-4 of
+    its max |g| and nonzero wherever the CPU's is; one AdamW step from the
+    CPU's gradients gives params within 1e-6 on both (Adam's first update
+    is about g / |g|, so a gradient element near 0 passes on its fp32
+    noise amplified up to 1/eps: each device steps from the same
+    gradients)."""
+    cfg = get_reduced(arch)
+    opts = (ModelOpts(moe_impl="capacity") if impl == "capacity"
+            else ModelOpts(attn_impl="flash", flash_block=8))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 40)))
+    opt_cfg = OptConfig(lr=1e-3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, opts, device=dev)
+        before = moe_gmm.launches
+        loss, grads = value_and_grad(m.train_loss, params_to(params, dev),
+                                     {"tokens": toks.to(dev)})
+        runs[dev] = (float(loss), params_to(grads, "cpu"),
+                     moe_gmm.launches - before)
+    (lc, gc_, n), (l0, g0, _) = runs["cuda"], runs["cpu"]
+    assert lc == pytest.approx(l0, rel=1e-5)
+    for a, b in zip(leaves(gc_), leaves(g0)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert not bool(((b != 0) & (a == 0)).any())
+    stepped = []
+    for dev in ("cuda", "cpu"):
+        p = params_to(params, dev)
+        p, _ = apply_updates(p, params_to(g0, dev), init_opt_state(
+            p, opt_cfg), opt_cfg)
+        stepped.append(params_to(p, "cpu"))
+    for a, b in zip(leaves(stepped[0]), leaves(stepped[1])):
+        assert float((a - b).abs().max()) <= 1e-6
+    chunks = router_chunks(2 * 40, cfg.moe) if cfg.moe else 0
+    assert n == 12 * cfg.n_layers * chunks
+
+
+def test_mamba_chunk_scan_refuses_grad(cuda):
+    x, a, b, c, _ = _scan_inputs((1, 2, 16, 2, 16, 16), cuda)
+    with pytest.raises(NotImplementedError, match="B8"):
+        mamba_chunk_scan(x.requires_grad_(), a, b, c)
+    with torch.no_grad():
+        y, _ = mamba_chunk_scan(x, a, b, c)
+    assert torch.isfinite(y).all()

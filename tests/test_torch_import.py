@@ -44,8 +44,9 @@ def test_port_imports_with_jax_absent():
 def test_guard_covers_every_slice():
     """The scans walk the package, so each slice's modules are in them:
     the MoE slice's model, kernel wrapper and configs included, the
-    prefix cache, replay, cluster, fault plane and disaggregation, and
-    the decoder families' attention, ``DecoderLM`` and config copies."""
+    prefix cache, replay, cluster, fault plane and disaggregation, the
+    decoder families' attention, ``DecoderLM`` and config copies, and the
+    training package and the encoder-decoder."""
     mods = _submodules()
     for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.mixtral_8x7b",
@@ -61,10 +62,17 @@ def test_guard_covers_every_slice():
               "repro_torch.models.lm", "repro_torch.configs.zamba2_2_7b",
               "repro_torch.configs.gemma3_1b",
               "repro_torch.configs.pixtral_12b",
-              "repro_torch.configs.deepseek_67b"):
+              "repro_torch.configs.deepseek_67b",
+              "repro_torch.models.encdec",
+              "repro_torch.configs.seamless_m4t_large_v2",
+              "repro_torch.training", "repro_torch.training.optimizer",
+              "repro_torch.training.train_step",
+              "repro_torch.training.checkpoint"):
         assert m in mods, m
     assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
-                                            "chip_smoke.py", "migration.py"}
+                                            "chip_smoke.py", "migration.py",
+                                            "encdec.py", "train_step.py",
+                                            "optimizer.py", "checkpoint.py"}
 
 
 def test_cluster_and_disagg_import_and_replay_with_jax_absent():

@@ -39,8 +39,9 @@ from repro.configs import get_reduced
 from repro.models import ModelOpts as JaxOpts
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import all_archs, get_reduced as torch_get_reduced
-from repro_torch.models import (ModelOpts, build_model, init_params,
-                                params_from_numpy, params_to_numpy)
+from repro_torch.models import (EncDecLM, ModelOpts, build_model,
+                                init_params, params_from_numpy,
+                                params_to_numpy)
 
 ATOL = 1e-4
 ATOL_CONSISTENCY = 5e-4
@@ -242,8 +243,10 @@ def test_config_copy_is_byte_equal_modulo_package(rel):
 
 
 def test_registry_holds_every_decoder_only_arch():
-    want = [a for a in jax_all_archs()
-            if not get_reduced(a).is_encoder_decoder]
+    """Every arch of the JAX registry, the decoder-only ones and, since
+    ``EncDecLM``, the encoder-decoder too."""
+    want = jax_all_archs()
+    assert [a for a in want if not get_reduced(a).is_encoder_decoder]
     assert all_archs() == want
     for arch in want:
         assert dataclasses.asdict(torch_get_reduced(arch)) == \
@@ -284,5 +287,5 @@ def test_model_opts_serve_fp32_only():
         ModelOpts(moe_impl="dropless")
     cfg = dataclasses.replace(torch_get_reduced("stablelm-3b"),
                               is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        build_model(cfg, device="cpu")
+    assert isinstance(build_model(cfg, device="cpu"), EncDecLM)
+    assert ModelOpts().remat and ModelOpts().ce_chunk == 512

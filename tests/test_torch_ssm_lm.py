@@ -132,17 +132,16 @@ def test_init_cache_is_the_jax_zero_cache(setup):
 
 
 def test_other_families_are_refused():
-    """``DecoderLM`` runs every decoder-only family now: it refuses the
-    encoder-decoder (ROADMAP A12b (iii)), and the paged executor refuses
-    the SSM and hybrid families, pointing at ``DecoderLM`` (the JAX
-    executor serves neither)."""
+    """``DecoderLM`` runs every decoder-only family: it refuses the
+    encoder-decoder, pointing at ``EncDecLM`` (whose tree ``init_params``
+    builds), and the paged executor refuses the SSM and hybrid families,
+    pointing at ``DecoderLM`` (the JAX executor serves neither)."""
     dense = torch_get_reduced("stablelm-3b")
     ssm = torch_get_reduced(ARCH)
     encdec = dataclasses.replace(dense, is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(ValueError, match="EncDecLM"):
         DecoderLM(encdec, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        init_params(encdec, torch.Generator(), "cpu")
+    assert "dec_layers" in init_params(encdec, torch.Generator(), "cpu")
     hybrid = torch_get_reduced("zamba2-2.7b")
     for cfg in (ssm, hybrid):
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
