@@ -107,6 +107,18 @@ nothing of the JAX package. Phases, each printing its own lines:
    where a nonzero state is carried in, C · state (L·N·P). Then (h) the
    same checks at zamba2-2.7b's heads (H=80, P=64, N=64), B=8 × 2048
    tokens: phase 5h's prefill shape.
+3g. B5's backward vs plain — ``mamba_chunk_scan_backward`` (five more
+   launches of B5's source, on the y and scratch a forward launch left)
+   against ``mamba_chunk_scan_backward_ref`` in fp64 at 3e's (l) and (m)
+   and 3e (h)'s shapes, 3e's inputs and dy ~ N(0, 1), a zero start and no
+   final-state gradient (the training path's). Gate: every gradient
+   (dxdt, da_dt, db, dc) within 1e-4 of its max |g|, a repeat bitwise
+   equal. Timing as in 3e (``graph_ms``; ``ssm_backward_launches_ms``
+   gives each of the five kernels' device ms); no library time: no
+   single PyTorch call computes it. Bound = max(bytes of xdt, a_dt, b, c,
+   dy and the four gradients / 3.35 TB/s, FLOPs / 67 TFLOP/s), the FLOPs
+   dY Xᵀ and Mᵀ dY on the causal pairs and four L·N·P products per head
+   and chunk, (Σ_h dG) C and (Σ_h dG) B on the causal pairs per chunk.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -256,6 +268,12 @@ nothing of the JAX package. Phases, each printing its own lines:
    AdamW step from the CPU's gradients gives params within 1e-6 on both
    devices, B4 launched 12 times per layer and router chunk (3 forward,
    3 recomputed under remat, 6 backward), no other kernel.
+4l. SSM and hybrid training parity — 4j's comparison for mamba2-1.3b at
+   full width with 2 layers and zamba2-2.7b at full width with 7 (one
+   application of the shared attention block after 6 Mamba2 blocks, then
+   a remainder block), one 256-token sequence each (2 chunks). 4j's
+   gates; B5 launched twice per Mamba2 block (forward, recomputed under
+   remat) and its backward once, no other kernel.
 4k. encoder-decoder parity — seamless-m4t-large-v2 at full width (d
    1024, vocab 256206) with 2 encoder and 2 decoder layers, the port's
    own weights (seed 1): ``EncDecLM.prefill`` of 2 × 256 frames and 4
@@ -305,12 +323,22 @@ nothing of the JAX package. Phases, each printing its own lines:
    decoder's apart for 6c), peak memory, losses, the checkpoint's bytes
    and save/load seconds; 6b also one profiled step's device ms and B4's
    part of it.
+6d-6e. SSM and hybrid training — 6a's loop, AdamW, 5 steps: 6d
+   mamba2-1.3b at full depth and width (48 Mamba2 blocks), 4 × 2048
+   tokens; 6e zamba2-2.7b at full depth and width (54 blocks, 9
+   applications of the shared attention block), 4 × 1024 tokens. No
+   checkpoint (6a-6c cover its I/O, which does not depend on the
+   family): after the steps one loss-and-gradient pass runs twice and
+   must repeat bit for bit. B5 launched twice per block a step and its
+   backward once, no other kernel. Reports 6a's numbers and one profiled
+   step's device ms with B5's forward and backward parts.
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
-B2, B4, B5; launches summed over every serving and training phase on the
-card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4f, 4g, 5, 5b, 5c, 5f, 5g, 5d, 5e,
-5h, 6b (B1 and B2 launch in 4f, 4g, 5f and 5g; B3 and B4 in 4h, B4 and
-B5 in 4i, B4 in 4j and 6b); B1's
+B2, B4, B5, B5's backward; launches summed over every serving and
+training phase on the card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4l, 4f, 4g,
+5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e (B1 and B2 launch in 4f, 4g,
+5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i, B4 in 4j and 6b, B5 and its
+backward in 4l, 6d and 6e); B1's
 times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
@@ -319,8 +347,9 @@ of 128, with B1's time from the same call (``b1_ms``) and step (b)'s as
 most, with the gate/up shape of the largest capacity 5d launched as
 ``prefill_*`` and 3f (u)'s backward pair as ``backward_*``; ``*graph_ms`` are device times alone, by CUDA-graph
 replay; B5's at 5e (i)'s shape from a zero state, with 5e (ii)'s as
-``long_*`` and 3e (h)'s, 5h's prefill shape, as ``hybrid_*``), and the
-card's name and power limit.
+``long_*`` and 3e (h)'s, 5h's prefill shape, as ``hybrid_*``; B5's
+backward's at 3g (l), with (m) as ``long_*`` and (h) as ``hybrid_*``),
+and the card's name and power limit.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the exit code is then non-zero and no result prints.
@@ -362,7 +391,8 @@ from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mamba2_scan  # noqa: E402
-from repro_torch.kernels.mamba2_scan import mamba_chunk_scan  # noqa: E402
+from repro_torch.kernels.mamba2_scan import (  # noqa: E402
+    mamba_chunk_scan, mamba_chunk_scan_backward)
 from repro_torch.kernels.moe_gmm import (MoeGmm, moe_gmm,  # noqa: E402
                                          moe_gmm_backward)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -370,8 +400,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.quant import (  # noqa: E402
     dequantize_kv, kv_quant_spec, quantize_kv, raw_pool)
 from repro_torch.kernels.ref import (  # noqa: E402
-    mamba_chunk_scan_ref, moe_gmm_ref, paged_attention_ragged_quant_ref,
-    paged_attention_ragged_ref, paged_attention_ref)
+    mamba_chunk_scan_backward_ref, mamba_chunk_scan_ref, moe_gmm_ref,
+    paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
+    paged_attention_ref)
 from repro_torch.models.encdec import EncDecLM  # noqa: E402
 from repro_torch.models.lm import (DecoderLM, ModelOpts,  # noqa: E402
                                    build_model)
@@ -1162,6 +1193,101 @@ def phase_ssm_kernels(device, timer, cfg=None, steps=SSM_STEPS) -> list:
     return recs
 
 
+# phase 3g: B5's backward at 3e's (l) and (m) and 3e (h)'s shapes
+SSM_BACKWARD_STEPS = (("mamba2-1.3b", SSM_STEPS[0]),
+                      ("mamba2-1.3b", SSM_STEPS[1]),
+                      ("zamba2-2.7b", HYBRID_SSM_STEPS[0]))
+SCAN_NEEDS = (True, True, True, True, False)   # as in training: no dinit
+
+
+def scan_backward_bound(b, nc, l, h, p, n) -> dict:
+    """xdt, a_dt, b, c and y's gradient read and the four gradients
+    written once, fp32 (a zero start and no final-state gradient, as in
+    training); FLOPs at the fp32 rate, as many as these inputs need: per
+    head and chunk dY Xᵀ and Mᵀ dY on the L(L+1)/2 causal pairs (2·P
+    each) and four L·N·P products (Cᵀ (exp(A) ⊙ dY), B D, the head's terms
+    of dB and dC), per batch and chunk (Σ_h dG) C and (Σ_h dG) B on the
+    causal pairs (B and C are shared by the heads)."""
+    nbytes = 4 * (3 * b * nc * l * h * p + 2 * b * nc * l * h
+                  + 4 * b * nc * l * n)
+    tri = l * (l + 1) // 2
+    flops = b * nc * h * (4 * p * tri + 8 * l * n * p) + b * nc * 4 * n * tri
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_ssm_backward(name, shape, timer, device, seed=0) -> dict:
+    """B5's backward (``mamba_chunk_scan_backward`` on what a forward launch
+    left: y and its scratch) against the fp64 plain backward, 3e's input
+    distributions and dy ~ N(0, 1), a zero start and no final-state
+    gradient (the training path's). Gate: every gradient (dxdt, da_dt,
+    db, dc) within 1e-4 of its max |g|, a repeat bitwise equal. Times the
+    kernel, its fp32 plain version and, on the card, its device work alone
+    (CUDA-graph replay) and each of its five launches (``torch.profiler``
+    over 5 calls)."""
+    b, nc, l, h, p, n = shape
+    cuda = torch.device(device).type == "cuda"
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shp: torch.randn(shp, generator=g, device=device)
+    x = rnd(b, nc, l, h, p).mul_(0.3)
+    a = rnd(b, nc, l, h).abs_().mul_(-0.1)
+    bm, cm = rnd(b, nc, l, n).mul_(0.3), rnd(b, nc, l, n).mul_(0.3)
+    dy = rnd(b, nc, l, h, p)
+    saved = mamba2_scan._launch(x, a, bm, cm, None)[::2] if cuda else None
+    kern = lambda: mamba_chunk_scan_backward(x, a, bm, cm, None, dy, None,
+                                             saved, SCAN_NEEDS)
+    plain = lambda: mamba_chunk_scan_backward_ref(x, a, bm, cm, None, dy,
+                                                  None)
+    got, again = kern()[:4], kern()[:4]
+    names = ("dxdt", "da_dt", "db", "dc")
+    rec = {"step": name, "B": b, "NC": nc, "L": l, "H": h, "P": p, "N": n,
+           "repeat_bitwise": all(torch.equal(u, v)
+                                 for u, v in zip(got, again))}
+    del again
+    exact = mamba_chunk_scan_backward_ref(
+        x.double(), a.double(), bm.double(), cm.double(), None,
+        dy.double(), None)[:4]
+    for k, u, e in zip(names, got, exact):
+        err = float((u.double() - e).abs().max())
+        rec[f"{k}_max_abs_err"] = err
+        rec[f"{k}_rel_err"] = err / float(e.abs().max())
+    del exact
+    plain_got = plain()[:4]
+    rec["plain_vs_kernel_max_abs_err"] = max(
+        float((u - v).abs().max()) for u, v in zip(got, plain_got))
+    del got, plain_got
+    rec["max_abs_err"] = max(rec[f"{k}_max_abs_err"] for k in names)
+    rec["max_rel_err"] = max(rec[f"{k}_rel_err"] for k in names)
+    rec.update(scan_backward_bound(b, nc, l, h, p, n))
+    if rec["max_rel_err"] > ATOL_KERNEL or not rec["repeat_bitwise"]:
+        _emit("ssm_backward_step", rec)
+        raise AssertionError(f"{name}: B5's backward disagrees with the "
+                             f"fp64 plain backward or does not repeat")
+    rec.update(time_in_turns(timer, kern, plain, None))
+    if cuda:
+        rec["graph_ms"] = graph_timer(kern)
+        _emit("ssm_backward_launches_ms", {
+            "step": name, "ms": device_ms_by_kernel(kern, 5)})
+    return rec
+
+
+def phase_ssm_backward(device, timer, steps=SSM_BACKWARD_STEPS) -> list:
+    """Phase 3g: B5's backward at each (arch, (name, B, prompt)) step's
+    scan shape."""
+    recs = []
+    for i, (arch, (name, batch, prompt)) in enumerate(steps):
+        recs.append(check_ssm_backward(
+            name, scan_shape(get(arch), batch, prompt), timer, device,
+            seed=30 + i))
+        _emit("ssm_backward_step", recs[-1])
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving through the engine
 # ---------------------------------------------------------------------------
@@ -1182,7 +1308,8 @@ def make_requests(cfg, n: int, prompt_range, new_tokens: int, gap: float,
 KERNELS = {"paged_attention_ragged": paged_attention_ragged,
            "paged_attention": paged_attention,
            "paged_attention_ragged_quant": paged_attention_ragged_quant,
-           "moe_gmm": moe_gmm, "mamba2_scan": mamba_chunk_scan}
+           "moe_gmm": moe_gmm, "mamba2_scan": mamba_chunk_scan,
+           "mamba2_scan_backward": mamba_chunk_scan_backward}
 # launches of each kernel summed over every serving and training run on
 # the card
 SERVING_LAUNCHES = {name: 0 for name in KERNELS}
@@ -2812,6 +2939,10 @@ def phase_moe_backward(device, timer, steps=None) -> list:
 TRAIN_PARITY = (("h2o-danube-1.8b", 2, 256, "dense"),
                 ("h2o-danube-1.8b", 2, 256, "flash"),
                 ("mixtral-8x7b", 1, 128, "capacity"))
+# phase 4l: the SSM family at 2 blocks, the hybrid at 7 (one application
+# of the shared attention block after 6, then a remainder block)
+TRAIN_PARITY_SSM = (("mamba2-1.3b", 2, 256, "auto"),
+                    ("zamba2-2.7b", 7, 256, "auto"))
 ATOL_STEP = 1e-6
 
 
@@ -2894,14 +3025,32 @@ def b4_train_launches(cfg, opts: ModelOpts, tokens: int, cuda: bool) -> int:
             * router_chunks(tokens, cfg.moe))
 
 
-def phase_train_parity(device, cases=TRAIN_PARITY) -> list:
-    """Phase 4j: each case's config at full width, its depth cut, the
-    port's own weights (seed 1), one sequence of random tokens (seed 7):
-    ``train_loss`` and its gradients on ``device`` and on the CPU, then
-    one AdamW step. Gates: loss within 1e-5 relative, every gradient leaf
-    within 1e-4 of its max |g| and nonzero wherever the CPU's is, params
-    after the step within 1e-6, B4 launched as ``b4_train_launches``
-    says and no other kernel."""
+def b5_train_launches(cfg, opts: ModelOpts, cuda: bool) -> tuple:
+    """(B5 forward, B5 backward) calls of one loss-and-gradient pass: per
+    Mamba2 block the forward, once more under remat (the block recomputed
+    for the backward pass), and one backward."""
+    if cfg.ssm is None or not cuda:
+        return 0, 0
+    return (2 if opts.remat else 1) * cfg.n_layers, cfg.n_layers
+
+
+def train_launches(cfg, opts: ModelOpts, tokens: int, cuda: bool) -> dict:
+    """Each kernel's calls in one loss-and-gradient pass: B4's and B5's
+    by their rules, no other kernel."""
+    fwd, bwd = b5_train_launches(cfg, opts, cuda)
+    return {n: 0 for n in KERNELS} | {
+        "moe_gmm": b4_train_launches(cfg, opts, tokens, cuda),
+        "mamba2_scan": fwd, "mamba2_scan_backward": bwd}
+
+
+def phase_train_parity(device, cases=TRAIN_PARITY, tag="4j") -> list:
+    """Phases 4j and 4l: each case's config at full width, its depth cut,
+    the port's own weights (seed 1), one sequence of random tokens (seed
+    7): ``train_loss`` and its gradients on ``device`` and on the CPU,
+    then one AdamW step. Gates: loss within 1e-5 relative, every gradient
+    leaf within 1e-4 of its max |g| and nonzero wherever the CPU's is,
+    params after the step within 1e-6, B4 and B5 launched as
+    ``train_launches`` says and no other kernel."""
     cuda = torch.device(device).type == "cuda"
     recs = []
     for arch, layers, tokens, impl in cases:
@@ -2911,20 +3060,19 @@ def phase_train_parity(device, cases=TRAIN_PARITY) -> list:
         params = init_params(cfg, torch.Generator(
             device=device).manual_seed(1), device)
         toks = np.random.default_rng(7).integers(0, cfg.vocab, (1, tokens))
-        rec = {"model": cfg.name, "layers": layers, "tokens": tokens,
-               "impl": impl,
+        rec = {"phase": tag, "model": cfg.name, "layers": layers,
+               "tokens": tokens, "impl": impl,
                "reduced": [f"n_layers {get(arch).n_layers} -> {layers}"],
                **grads_parity(DecoderLM(cfg, opts, device=device),
                               DecoderLM(cfg, opts, device="cpu"), params,
                               {"tokens": torch.as_tensor(toks,
                                                          device=device)},
                               {"tokens": torch.as_tensor(toks)})}
-        want = b4_train_launches(cfg, opts, tokens, cuda)
-        rec["b4_launches_expected"] = want
+        want = train_launches(cfg, opts, tokens, cuda)
+        rec["launches_expected"] = want
         rec["seconds"] = time.perf_counter() - t0
         _emit("train_parity", rec)
-        if not rec["grads_ok"] or rec["launches"] != {
-                n: want if n == "moe_gmm" else 0 for n in KERNELS}:
+        if not rec["grads_ok"] or rec["launches"] != want:
             raise AssertionError(f"{cfg.name} ({impl}): card and CPU "
                                  f"train differently, or the launches are "
                                  f"wrong")
@@ -3079,21 +3227,25 @@ def phase_encdec_serve(device, workload=ENCDEC_SERVE) -> dict:
 class TrainRun:
     """One phase of 6: the model (config, options), the optimizer, the
     batch (made on the device from a seed), the steps and the step after
-    which the checkpoint is saved."""
+    which the checkpoint is saved (None: no checkpoint; a repeated
+    loss-and-gradient pass instead)."""
     tag: str
     cfg: object
     opts: ModelOpts
     opt: OptConfig
     batch: tuple          # (B, S) tokens, or (B, frames, decoder tokens)
     steps: int
-    save_after: int = 3
+    save_after: Optional[int] = 3
 
 
 def train_runs() -> list:
     """6a h2o-danube-1.8b (every layer, AdamW, B 4 × 1024), 6b
     mixtral-8x7b (2 layers, Adafactor, capacity, B 2 × 1024), 6c
     seamless-m4t-large-v2 (every layer, AdamW, B 4 × (1024 frames, 256
-    decoder tokens))."""
+    decoder tokens)), 6d mamba2-1.3b (every layer, AdamW, B 4 × 2048) and
+    6e zamba2-2.7b (every layer, AdamW, B 4 × 1024); 6d and 6e without a
+    checkpoint (6a-6c cover its I/O, which does not depend on the
+    family)."""
     return [TrainRun("6a", get("h2o-danube-1.8b"), ModelOpts(),
                      OptConfig(name="adamw"), (4, 1024), 8),
             TrainRun("6b", dataclasses.replace(get("mixtral-8x7b"),
@@ -3101,7 +3253,11 @@ def train_runs() -> list:
                      ModelOpts(moe_impl="capacity"),
                      OptConfig(name="adafactor"), TRAIN_MOE_BATCH, 5),
             TrainRun("6c", get("seamless-m4t-large-v2"), ModelOpts(),
-                     OptConfig(name="adamw"), (4, 1024, 256), 5)]
+                     OptConfig(name="adamw"), (4, 1024, 256), 5),
+            TrainRun("6d", get("mamba2-1.3b"), ModelOpts(),
+                     OptConfig(name="adamw"), (4, 2048), 5, None),
+            TrainRun("6e", get("zamba2-2.7b"), ModelOpts(),
+                     OptConfig(name="adamw"), (4, 1024), 5, None)]
 
 
 def train_batch(run: TrainRun, device) -> dict:
@@ -3141,10 +3297,11 @@ def model_flops(cfg, counts: dict, batch: tuple) -> float:
     return 6.0 * counts["active_params"] * math.prod(batch)
 
 
-def trace_ms(fn, names: tuple, label: str) -> tuple:
+def trace_ms(fn, groups: dict, label: str) -> tuple:
     """(device ms of one call of ``fn``: every kernel, copy and memset of
-    its ``torch.profiler`` trace; the part in kernels whose name holds one
-    of ``names``), the trace kept as build/profile/``label``.json."""
+    its ``torch.profiler`` trace; by group of ``groups`` (name: kernel
+    names), the part in kernels whose name holds one of the group's),
+    the trace kept as build/profile/``label``.json."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -3157,9 +3314,10 @@ def trace_ms(fn, names: tuple, label: str) -> tuple:
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     total = sum(e["dur"] for e in events) / 1e3
-    part = sum(e["dur"] for e in events
-               if any(k in e.get("name", "") for k in names)) / 1e3
-    return total, part
+    parts = {g: sum(e["dur"] for e in events
+                    if any(k in e.get("name", "") for k in names)) / 1e3
+             for g, names in groups.items()}
+    return total, parts
 
 
 B4_KERNELS = ("gmm_tile_kernel", "gmm_stream_kernel", "splitk_reduce_kernel")
@@ -3167,18 +3325,20 @@ CKPT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ckpt"
 
 
 def phase_train(run: TrainRun, device) -> dict:
-    """One of phases 6a-6c: ``make_train_step`` over one fixed batch for
-    ``run.steps`` steps from the port's own weights (seed 0), a
-    checkpoint saved after step ``save_after``; then the checkpoint is
-    loaded and the remaining steps run again. Gates: every loss finite
-    and the last below the first; every step's gradient norm finite (so
-    every gradient leaf is); the restored run's params within 1e-6 of
-    the uninterrupted run's and its losses within 1e-6 relative; B4
-    launched 12 times per layer and router chunk a step under capacity,
-    no other kernel. Reports s/step (median of the steps after the
-    first), tokens/s, model TFLOP/s, peak memory, the losses, the
-    checkpoint's bytes and save/load seconds; under capacity also one
-    profiled step's device ms and B4's part."""
+    """One of phases 6a-6e: ``make_train_step`` over one fixed batch for
+    ``run.steps`` steps from the port's own weights (seed 0). With
+    ``save_after`` a checkpoint is saved after that step, loaded, and the
+    remaining steps run again; without it one loss-and-gradient pass is
+    repeated. Gates: every loss finite and the last below the first;
+    every step's gradient norm finite (so every gradient leaf is); the
+    restored run's params within 1e-6 of the uninterrupted run's and its
+    losses within 1e-6 relative, or the repeated pass's loss and
+    gradients bitwise equal; B4 and B5 launched as ``train_launches``
+    says a step, no other kernel. Reports s/step (median of the steps
+    after the first), tokens/s, model TFLOP/s, peak memory, the losses,
+    the checkpoint's bytes and save/load seconds; under capacity or with
+    Mamba2 blocks also one profiled step's device ms and B4's, or B5's
+    forward and backward, part of it."""
     cfg, cuda = run.cfg, torch.device(device).type == "cuda"
     model = build_model(cfg, run.opts, device=device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -3212,24 +3372,8 @@ def phase_train(run: TrainRun, device) -> dict:
         for name, c in launches.items():
             SERVING_LAUNCHES[name] += c
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    final = params_to(params, "cpu")
-    del params, opt
-    if cuda:
-        _release_memory()
-    t0 = time.perf_counter()
-    state = load_checkpoint(str(ckpt), device)
-    load_s = time.perf_counter() - t0
-    ckpt_bytes = ckpt.stat().st_size
-    ckpt.unlink()
-    params, opt = state["params"], state["opt"]
-    del state
-    resumed = []
-    for _ in range(run.save_after, run.steps):
-        params, opt, met = step(params, opt, batch)
-        resumed.append(float(met["loss"]))
-    restore_err = max(float((a.cpu() - b).abs().max())
-                      for a, b in zip(leaves(params), leaves(final)))
-    del final
+    # the uninterrupted run's params, before the profiled step moves them
+    final = None if run.save_after is None else params_to(params, "cpu")
     s = statistics.median(step_s[1:])
     tokens = math.prod(run.batch) if not cfg.is_encoder_decoder else \
         run.batch[0] * (run.batch[1] + run.batch[2])
@@ -3242,29 +3386,66 @@ def phase_train(run: TrainRun, device) -> dict:
            "s_per_step": s, "tokens_per_s": tokens / s,
            "model_flops_per_step": flops,
            "model_tflop_per_s": flops / s / 1e12,
-           "max_memory_allocated_bytes": peak,
-           "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
-           "load_s": load_s, "resumed_losses": resumed,
-           "restore_params_max_abs_err": restore_err,
-           "restore_bitwise": restore_err == 0.0, "launches": launches}
+           "max_memory_allocated_bytes": peak, "launches": launches}
     if cfg.n_layers != get(cfg.name).n_layers:
         rec["reduced"] = [f"n_layers {get(cfg.name).n_layers} -> "
                           f"{cfg.n_layers}"]
-    want = b4_train_launches(cfg, run.opts, math.prod(run.batch),
-                             cuda) * run.steps
-    if cuda and cfg.moe is not None:
-        total, b4 = trace_ms(lambda: step(params, opt, batch), B4_KERNELS,
-                             f"train_{run.tag}")
-        rec.update(step_device_ms=total, b4_device_ms=b4,
-                   b4_share=b4 / total if total else None)
+    want = {n: c * run.steps for n, c in train_launches(
+        cfg, run.opts, math.prod(run.batch), cuda).items()}
+    groups = {}
+    if cfg.moe is not None and run.opts.moe_impl == "capacity":
+        groups["b4"] = B4_KERNELS
+    if cfg.ssm is not None:
+        groups |= {"b5_forward": B5_KERNELS,
+                   "b5_backward": mamba2_scan.BACKWARD_KERNELS}
+    if cuda and groups:
+        total, parts = trace_ms(lambda: step(params, opt, batch), groups,
+                                f"train_{run.tag}")
+        rec["step_device_ms"] = total
+        for g, ms in parts.items():
+            rec[f"{g}_device_ms"] = ms
+            rec[f"{g}_share"] = ms / total if total else None
+    if run.save_after is None:
+        del opt
+        if cuda:
+            _release_memory()
+        passes = [value_and_grad(model.train_loss, params, batch)
+                  for _ in range(2)]
+        (l1, g1), (l2, g2) = passes
+        rec["repeat_bitwise"] = bool(torch.equal(l1, l2) and all(
+            torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2))))
+        del passes, g1, g2
+        restored = rec["repeat_bitwise"]
+    else:
+        del params, opt
+        if cuda:
+            _release_memory()
+        t0 = time.perf_counter()
+        state = load_checkpoint(str(ckpt), device)
+        load_s = time.perf_counter() - t0
+        ckpt_bytes = ckpt.stat().st_size
+        ckpt.unlink()
+        params, opt = state["params"], state["opt"]
+        del state
+        resumed = []
+        for _ in range(run.save_after, run.steps):
+            params, opt, met = step(params, opt, batch)
+            resumed.append(float(met["loss"]))
+        restore_err = max(float((a.cpu() - b).abs().max())
+                          for a, b in zip(leaves(params), leaves(final)))
+        del final, opt
+        rec.update(checkpoint_bytes=ckpt_bytes, save_s=save_s,
+                   load_s=load_s, resumed_losses=resumed,
+                   restore_params_max_abs_err=restore_err,
+                   restore_bitwise=restore_err == 0.0)
+        restored = (restore_err <= ATOL_STEP
+                    and all(abs(a - b) <= 1e-6 * abs(b)
+                            for a, b in zip(resumed,
+                                            losses[run.save_after:])))
     _emit("train", rec)
     ok = (all(math.isfinite(v) for v in losses + norms)
-          and losses[-1] < losses[0] and restore_err <= ATOL_STEP
-          and all(abs(a - b) <= 1e-6 * abs(b)
-                  for a, b in zip(resumed, losses[run.save_after:]))
-          and launches == {n: want if n == "moe_gmm" else 0
-                           for n in KERNELS})
-    del params, opt, model, batch
+          and losses[-1] < losses[0] and restored and launches == want)
+    del params, model, batch
     if not ok:
         raise AssertionError(f"{run.tag} {cfg.name}: training failed a gate")
     return rec
@@ -3301,6 +3482,7 @@ def main() -> int:
     srecs = phase_ssm_kernels("cuda", cuda_timer)
     hrecs = phase_ssm_kernels("cuda", cuda_timer, cfg=get("zamba2-2.7b"),
                               steps=HYBRID_SSM_STEPS)
+    grecs = phase_ssm_backward("cuda", cuda_timer)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
@@ -3315,6 +3497,8 @@ def main() -> int:
     phase_decoder_parity("cuda")
     _release_memory()
     phase_train_parity("cuda")
+    _release_memory()
+    phase_train_parity("cuda", TRAIN_PARITY_SSM, tag="4l")
     _release_memory()
     phase_encdec_parity("cuda")
     _release_memory()
@@ -3369,6 +3553,7 @@ def main() -> int:
     hyb_srec = hrecs[0]           # step (h), zero state: 5h's shape
     bwd_mrec = next(r for r in brecs_b4           # step (u), gate/up
                     if r["step"] == "u_c960_gate_up")
+    main_grec, long_grec, hyb_grec = grecs   # 3g (l), (m), (h)
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -3441,7 +3626,26 @@ def main() -> int:
         "hybrid_ms": hyb_srec["ms"], "hybrid_plain_ms": hyb_srec["plain_ms"],
         "hybrid_graph_ms": hyb_srec["graph_ms"],
         "hybrid_bound_ms": hyb_srec["bound_ms"],
-        "hybrid_bound_by": hyb_srec["bound_by"]}]
+        "hybrid_bound_by": hyb_srec["bound_by"]}, {
+        "name": "mamba2_scan_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/models/mamba2.py:75",
+        "replaces_note": "the VJP of ssd_chunked, which the JAX package's "
+                         "training differentiates: the TPU package has no "
+                         "Pallas backward of src/repro/kernels/"
+                         "mamba2_scan.py:64",
+        "launches": SERVING_LAUNCHES["mamba2_scan_backward"],
+        "max_abs_err": max(r["max_abs_err"] for r in grecs),
+        "max_rel_err": max(r["max_rel_err"] for r in grecs),
+        "ms": main_grec["ms"], "plain_ms": main_grec["plain_ms"],
+        "bound_ms": main_grec["bound_ms"], "bound_by": main_grec["bound_by"],
+        "library_ms": main_grec["library_ms"],
+        "graph_ms": main_grec["graph_ms"], "long_ms": long_grec["ms"],
+        "long_graph_ms": long_grec["graph_ms"],
+        "long_bound_ms": long_grec["bound_ms"],
+        "hybrid_ms": hyb_grec["ms"], "hybrid_plain_ms": hyb_grec["plain_ms"],
+        "hybrid_graph_ms": hyb_grec["graph_ms"],
+        "hybrid_bound_ms": hyb_grec["bound_ms"]}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,10 @@ paged_attention_ragged_quant — the ragged kernel over int8 / fp8-e4m3 K/V
                          quantized op flattens into it
 moe_gmm                — batched expert GEMM (E, C, K) x (E, K, N), the
                          capacity-dispatch MoE FFN's three projections
+                         (and, in training, their backward GEMMs)
 mamba2_scan            — the Mamba2 SSD chunk scan, every Mamba2 block's
-                         prefill (the ssm family's ``DecoderLM.prefill``)
+                         prefill and training forward, and its backward
+                         (``MambaChunkScan``) in training
 
 These are the counterparts of all five TPU kernels of the JAX package.
 

@@ -15,8 +15,9 @@
 // (the model seeds a prefill's scan from its cache), and writes the state
 // in the model's layout itself where the TPU op transposes it.
 //
-// Where it runs: every Mamba2 block's prefill
-// (models/mamba2.py::mamba_seq → ssd_chunked → ops.mamba_chunk_scan_op);
+// Where it runs: every Mamba2 block's prefill and training forward
+// (models/mamba2.py::mamba_seq → ssd_chunked → ops.mamba_chunk_scan_op →
+// kernels/mamba2_scan.py::MambaChunkScan), the backward below in training;
 // decode steps run the one-step recurrence as tensor ops.
 //
 // What bounds it on the H100: per chunk and head L(L+1)/2·P FMAs for the
@@ -72,6 +73,30 @@
 // are zero past L and N in k, so any L of 1 to 128 works; rows and
 // columns past L and P are computed and not stored. Offsets are 64-bit.
 // Every output is a fixed FMA chain, the same on every run.
+//
+// The backward (mamba2_scan_bwd_f32; the TPU package has no Pallas
+// backward: its training differentiates the einsum ssd_chunked, and this
+// is that einsum's VJP). It reads what the forward left in its scratch —
+// the carried states, acum, decay and Gᵀ — and the forward's y, and
+// mirrors the forward's split in five launches:
+//   1. bwd_state (launch 2's body, weights exp(acum)): each chunk's own
+//      dS term U = Cᵀ (exp(acum) ⊙ dY), (B, NC, H, N, P);
+//   2. bwd_pass (launch 3's body, from the last chunk): U replaced by D =
+//      dS_{c+1} (dfinal behind the last chunk), dS_0 the initial state's
+//      gradient;
+//   3. bwd_chunk: a block per (batch, chunk, head): dX, dG = (dY Xᵀ) ⊙
+//      exp(acum_i − acum_j) on i >= j into a scratch, and da (see the
+//      kernel);
+//   4. bwd_dg_sum: Σ_h dG in head order;
+//   5. bwd_bc: dB and dC, 64 rows a block, Σ_h dG times C or B once per
+//      chunk (B and C are shared by the heads, so the L x L x N product is
+//      not one per head) plus the heads' state terms in head order.
+// What bounds it: about 2·L²·P + 8·L·N·P FLOPs a (batch, chunk, head), as
+// the forward fp32 FMA-bound. This first version is plain: 16 x 16
+// threads over one 32-deep slab in shared memory at a time, synchronous
+// loads, the causal tiles of dY Xᵀ and Mᵀ dY formed whole and masked by a
+// select (B7 makes it fast). No atomics: every sum has one order, so a
+// repeat is bitwise equal.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -279,11 +304,15 @@ __device__ __forceinline__ void load_acum(float* slot, const float* acum,
     cp16(slot + 4 * threadIdx.x, acum + (bc * H + h) * LP + 4 * threadIdx.x);
 }
 
-// launch 2: states[b, c, h] (N x P, zero start) for HB heads
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                   const float* __restrict__ acum, float* __restrict__ states,
-                   int NC, int L, int H, int P, int N, int LP, int HB) {
+// launch 2: states[b, c, h] (N x P, zero start) for HB heads. With kGrad
+// it is the backward's launch 1 instead (bwd_state_kernel): x is dY, bm is
+// C, and the weight of step j is exp(acum_j), so it writes U = Cᵀ
+// (exp(acum) ⊙ dY)
+template <bool kGrad>
+__device__ __forceinline__ void chunk_state_body(
+    const float* __restrict__ x, const float* __restrict__ bm,
+    const float* __restrict__ acum, float* __restrict__ states, int NC,
+    int L, int H, int P, int N, int LP, int HB) {
   extern __shared__ __align__(16) float smem[];
   float* slots = smem + 2 * kStageFloats;  // [kAcumSlots][LT]
   const int tid = threadIdx.x, lane = tid & 31;
@@ -321,7 +350,8 @@ chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
       load_acum(slots + ((hh + 1) % kAcumSlots) * LT, acum, bc, H, h0 + hh + 1,
                 LP);
   };
-  // w_j = exp(acum_L − acum_j) on the rows of X this thread copied
+  // w_j = exp(acum_L − acum_j) (kGrad: exp(acum_j)) on the rows of X this
+  // thread copied
   auto weigh = [&](int buf, int hh, int u) {
     float* bs = smem + buf * kStageFloats + kAFloats;
     const int j0 = u * KS;
@@ -332,7 +362,7 @@ chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
       const int k = (tid >> 4) + 8 * q, c4 = tid & 15, j = j0 + k;
       if (j < L && 4 * c4 < P) {
         float4* v = reinterpret_cast<float4*>(bs + k * PT + 4 * c4);
-        const float w = __expf(last - ac[j]);
+        const float w = __expf(kGrad ? ac[j] : last - ac[j]);
         float4 g = *v;
         g.x *= w;
         g.y *= w;
@@ -372,18 +402,30 @@ chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+                   const float* __restrict__ acum, float* __restrict__ states,
+                   int NC, int L, int H, int P, int N, int LP, int HB) {
+  chunk_state_body<false>(x, bm, acum, states, NC, L, H, P, N, LP, HB);
+}
+
 // launch 3: per 4 state elements (one n, 4 consecutive p), the chunks in
 // order, each chunk's own state replaced by the state carried into it. A
 // thread keeps kPass chunks' 16-byte loads in flight all the way: the
 // load of chunk c + kPass starts as soon as chunk c's is consumed, in
 // the register chunk c freed (the loop is unrolled kPass chunks at a time
-// so that the ring's registers have fixed names)
+// so that the ring's registers have fixed names). kRev walks the chunks
+// from the last one: the backward's launch 2 (bwd_pass_kernel), which
+// replaces each chunk's U with dS_{c+1}, the gradient carried into the
+// chunk from behind, and writes dS_0 (s0: dfinal, sout: the initial
+// state's gradient, or null)
 constexpr int kPass = 16;
 
-__global__ void __launch_bounds__(kPassThreads)
-state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
-                  const float* __restrict__ s0, float* __restrict__ sout,
-                  int B, int NC, int H, int P, int N) {
+template <bool kRev>
+__device__ __forceinline__ void state_pass_body(
+    float* __restrict__ states, const float* __restrict__ decay,
+    const float* __restrict__ s0, float* __restrict__ sout, int B, int NC,
+    int H, int P, int N) {
   const size_t np = static_cast<size_t>(N) * P;
   const size_t e =
       (static_cast<size_t>(blockIdx.x) * kPassThreads + threadIdx.x) * 4;
@@ -402,13 +444,15 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
   const size_t cs = static_cast<size_t>(H) * np;  // floats between chunks
   float* base = states + (b * NC * H + h) * np + k;
   const float* dec = decay + b * NC * H + h;
+  // the chunk the c-th step of the walk visits
+  auto at = [&](int c) -> size_t { return kRev ? NC - 1 - c : c; };
   float4 own[kPass];
   float d[kPass];
 #pragma unroll
   for (int i = 0; i < kPass; ++i) {
     if (i < NC) {
-      own[i] = *reinterpret_cast<const float4*>(base + i * cs);
-      d[i] = dec[static_cast<size_t>(i) * H];
+      own[i] = *reinterpret_cast<const float4*>(base + at(i) * cs);
+      d[i] = dec[at(i) * H];
     }
   }
   for (int c0 = 0; c0 < NC; c0 += kPass) {
@@ -416,21 +460,31 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
     for (int i = 0; i < kPass; ++i) {
       const int c = c0 + i;
       if (c < NC) {
-        *reinterpret_cast<float4*>(base + c * cs) =
+        *reinterpret_cast<float4*>(base + at(c) * cs) =
             make_float4(s[0], s[1], s[2], s[3]);
         s[0] = s[0] * d[i] + own[i].x;
         s[1] = s[1] * d[i] + own[i].y;
         s[2] = s[2] * d[i] + own[i].z;
         s[3] = s[3] * d[i] + own[i].w;
         if (c + kPass < NC) {
-          own[i] = *reinterpret_cast<const float4*>(base + (c + kPass) * cs);
-          d[i] = dec[static_cast<size_t>(c + kPass) * H];
+          own[i] =
+              *reinterpret_cast<const float4*>(base + at(c + kPass) * cs);
+          d[i] = dec[at(c + kPass) * H];
         }
       }
     }
   }
+  if (sout != nullptr) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) sout[pn + i * N] = s[i];
+    for (int i = 0; i < 4; ++i) sout[pn + i * N] = s[i];
+  }
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
+                  const float* __restrict__ s0, float* __restrict__ sout,
+                  int B, int NC, int H, int P, int N) {
+  state_pass_body<false>(states, decay, s0, sout, B, NC, H, P, N);
 }
 
 // launch 4: y for one chunk and HB heads. zero_start: no initial state, so
@@ -570,6 +624,367 @@ chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ ct,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward: launches 3 to 5 (1 and 2 are bwd_state_kernel and
+// bwd_pass_kernel, on the forward's bodies)
+
+constexpr int kGradThreads = 256;       // 16 x 16 threads, 8 warps
+constexpr int GLD = LT + 1;             // row stride of a grad slab: the
+                                        // transposing stores hit 32 banks
+constexpr int kRowTile = 64;            // launch 5: rows a block
+
+// launch 1: U = Cᵀ (exp(acum) ⊙ dY) on launch 2's body
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+bwd_state_kernel(const float* __restrict__ dy, const float* __restrict__ cm,
+                 const float* __restrict__ acum, float* __restrict__ u,
+                 int NC, int L, int H, int P, int N, int LP, int HB) {
+  chunk_state_body<true>(dy, cm, acum, u, NC, L, H, P, N, LP, HB);
+}
+
+// launch 2: D = dS_{c+1} from the last chunk, on launch 3's body
+__global__ void __launch_bounds__(kPassThreads)
+bwd_pass_kernel(float* __restrict__ u, const float* __restrict__ decay,
+                const float* __restrict__ dfinal, float* __restrict__ dinit,
+                int B, int NC, int H, int P, int N) {
+  state_pass_body<true>(u, decay, dfinal, dinit, B, NC, H, P, N);
+}
+
+// acc[r][q] += Σ_k A[k][ty + 16r] · B[k][tx + 16q] over one KS-deep slab of
+// `as` and `bs` (both [KS][GLD], zero past their edges)
+template <int R, int Q>
+__device__ __forceinline__ void mm_slab(float (&acc)[R][Q],
+                                        const float* __restrict__ as,
+                                        const float* __restrict__ bs, int ty,
+                                        int tx) {
+#pragma unroll 4
+  for (int k = 0; k < KS; ++k) {
+    float av[R], bv[Q];
+#pragma unroll
+    for (int r = 0; r < R; ++r) av[r] = as[k * GLD + ty + 16 * r];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) bv[q] = bs[k * GLD + tx + 16 * q];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+  }
+}
+
+template <int R, int Q>
+__device__ __forceinline__ void zero_tile(float (&acc)[R][Q]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[r][q] = 0.f;
+}
+
+// slab[k][r] = f(k, r) for k < KS and r < rows; k runs fastest, so a warp
+// reads 32 consecutive k of one source row (a source contiguous in k)
+template <typename F>
+__device__ __forceinline__ void fill_by_k(float* slab, int rows, F f) {
+  for (int e = threadIdx.x; e < KS * rows; e += kGradThreads) {
+    const int k = e & (KS - 1), r = e / KS;
+    slab[k * GLD + r] = f(k, r);
+  }
+}
+
+// slab[k][r] = f(k, r) for k < KS and r < cols (a power of two); r runs
+// fastest (a source contiguous in r)
+template <int kCols, typename F>
+__device__ __forceinline__ void fill_by_col(float* slab, F f) {
+  for (int e = threadIdx.x; e < KS * kCols; e += kGradThreads) {
+    const int r = e & (kCols - 1), k = e / kCols;
+    slab[k * GLD + r] = f(k, r);
+  }
+}
+
+// launch 3: one (batch, chunk, head) a block. With S the state carried into
+// the chunk, D = dS_{c+1} (launch 2), M_ij = G_ij exp(acum_i − acum_j) on
+// i >= j and w_j = exp(acum_L − acum_j):
+//   dM = dY Xᵀ on i >= j, dG = dM ⊙ exp(acum_i − acum_j) into `dg`
+//     (B, NC, H, L, L), zero above the diagonal;
+//   dX = w ⊙ (B D) + Mᵀ dY;
+//   dacum_i = Σ_p dY_ip y_ip − Σ_i' (dG ⊙ G)_i'i − T_i, T_j = Σ_p X_jp
+//     (w ⊙ B D)_jp; at i = L−1 also + Σ_j T_j + exp(acum_L) Σ D ⊙ S;
+//   da = the reverse cumulative sum of dacum.
+// Σ_p dY ⊙ y stands for the row sums of dM ⊙ M plus Σ_p dY ⊙ y_off (y =
+// M X + y_off), so neither C Sᵀ nor the row sums are formed.
+__global__ void __launch_bounds__(kGradThreads)
+bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                  const float* __restrict__ y, const float* __restrict__ gt,
+                  const float* __restrict__ bm, const float* __restrict__ acum,
+                  const float* __restrict__ decay,
+                  const float* __restrict__ states,
+                  const float* __restrict__ dstates, float* __restrict__ dx,
+                  float* __restrict__ dg, float* __restrict__ da, int NC,
+                  int L, int H, int P, int N, int LP) {
+  __shared__ float as[KS * GLD];
+  __shared__ float bs[KS * GLD];
+  __shared__ float part[16 * LT];  // per ty: column sums of dG ⊙ G
+  __shared__ float ac[LT];         // acum of this head
+  __shared__ float dA[LT];
+  __shared__ float tj[LT];
+  __shared__ float red[kGradThreads / 32];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x;
+  const size_t bc = static_cast<size_t>(blockIdx.z) * NC + blockIdx.y;
+  const size_t bch = bc * H + h;
+  const size_t xrow = static_cast<size_t>(H) * P;
+  const size_t head = bc * L * xrow + static_cast<size_t>(h) * P;
+  const float* xh = x + head;      // row i at + i·xrow
+  const float* dyh = dy + head;
+  const float* yh = y + head;
+  const float* g = gt + bc * L * LP;  // Gᵀ[j][i] at g[j·LP + i]
+  const float* bb = bm + bc * L * N;
+  const float* sh = states + bch * N * P;  // [n][p]
+  const float* dh = dstates + bch * N * P;
+  for (int i = tid; i < LT; i += kGradThreads) {
+    ac[i] = i < L ? acum[bch * LP + i] : 0.f;
+    dA[i] = 0.f;
+  }
+  __syncthreads();
+  const float last = ac[L - 1];
+
+  // dM = dY Xᵀ, k = p
+  float acc[8][8];
+  zero_tile(acc);
+  for (int p0 = 0; p0 < P; p0 += KS) {
+    fill_by_k(as, LT, [&](int k, int r) {
+      return r < L && p0 + k < P ? dyh[r * xrow + p0 + k] : 0.f;
+    });
+    fill_by_k(bs, LT, [&](int k, int r) {
+      return r < L && p0 + k < P ? xh[r * xrow + p0 + k] : 0.f;
+    });
+    __syncthreads();
+    mm_slab(acc, as, bs, ty, tx);
+    __syncthreads();
+  }
+  float* dgh = dg + bch * L * L;
+  float colp[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) colp[q] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = ty + 16 * r;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = tx + 16 * q;
+      float v = 0.f, qv = 0.f;
+      if (i < L && j <= i) {   // a select: exp above the diagonal may be inf
+        v = acc[r][q] * expf(ac[i] - ac[j]);
+        qv = v * g[j * LP + i];
+      }
+      if (i < L && j < L) dgh[i * L + j] = v;
+      colp[q] += qv;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) part[ty * LT + tx + 16 * q] = colp[q];
+  __syncthreads();
+  if (tid < L) {
+    float s = 0.f;
+    for (int t = 0; t < 16; ++t) s += part[t * LT + tid];
+    dA[tid] = -s;
+  }
+
+  // dX: the state slabs (k = n: Bᵀ and D), times w_j, then the key slabs
+  // (k = i: M and dY)
+  float acx[8][4];
+  zero_tile(acx);
+  for (int n0 = 0; n0 < N; n0 += KS) {
+    fill_by_k(as, LT, [&](int k, int r) {
+      return r < L && n0 + k < N ? bb[r * N + n0 + k] : 0.f;
+    });
+    fill_by_col<PT>(bs, [&](int k, int c) {
+      return n0 + k < N && c < P ? dh[(n0 + k) * P + c] : 0.f;
+    });
+    __syncthreads();
+    mm_slab(acx, as, bs, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int j = ty + 16 * r;
+    const float w = j < L ? expf(last - ac[j]) : 0.f;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      acx[r][q] *= w;
+      const int p = tx + 16 * q;
+      if (j < L && p < P) t = fmaf(xh[j * xrow + p], acx[r][q], t);
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (tx == 0 && j < L) {   // this thread's own rows: no other writer
+      tj[j] = t;
+      dA[j] -= t;
+    }
+  }
+  for (int i0 = 0; i0 < L; i0 += KS) {
+    fill_by_k(as, LT, [&](int k, int r) {   // M[i0 + k][r]
+      const int i = i0 + k;
+      return i < L && r <= i ? g[r * LP + i] * expf(ac[i] - ac[r]) : 0.f;
+    });
+    fill_by_col<PT>(bs, [&](int k, int c) {
+      return i0 + k < L && c < P ? dyh[(i0 + k) * xrow + c] : 0.f;
+    });
+    __syncthreads();
+    mm_slab(acx, as, bs, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int j = ty + 16 * r;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = tx + 16 * q;
+      if (j < L && p < P) dx[head + j * xrow + p] = acx[r][q];
+    }
+  }
+
+  // dacum: + Σ_p dY ⊙ y a row (a warp a row); Σ D ⊙ S and Σ_j T_j at L−1
+  for (int i = warp; i < L; i += kGradThreads / 32) {
+    float s = 0.f;
+    for (int p = lane; p < P; p += 32)
+      s = fmaf(dyh[i * xrow + p], yh[i * xrow + p], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) dA[i] += s;
+  }
+  float ds = 0.f;
+  for (int e = tid; e < N * P; e += kGradThreads) ds = fmaf(dh[e], sh[e], ds);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ds += __shfl_xor_sync(0xffffffffu, ds, o);
+  if (lane == 0) red[warp] = ds;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f, ts = 0.f;
+    for (int w = 0; w < kGradThreads / 32; ++w) tot += red[w];
+    for (int j = 0; j < L; ++j) ts += tj[j];
+    dA[L - 1] += ts + decay[bch] * tot;
+  }
+  __syncthreads();
+  // da_i = Σ_{i' >= i} dacum_i': lane-local runs of 4 from the top, then a
+  // shuffle scan of the lane totals from the last lane down
+  if (warp == 0) {
+    float v[4], run = 0.f;
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      const int l = 4 * lane + k;
+      run += l < L ? dA[l] : 0.f;
+      v[k] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += t;
+    }
+    const float excl = incl - run;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int l = 4 * lane + k;
+      if (l < L) da[(bc * L + l) * H + h] = v[k] + excl;
+    }
+  }
+}
+
+// launch 4: Σ_h dG over the heads in order, one element a thread
+__global__ void __launch_bounds__(kPassThreads)
+bwd_dg_sum_kernel(const float* __restrict__ dg, float* __restrict__ dgs, int H,
+              size_t ll, size_t total) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * kPassThreads +
+                   threadIdx.x;
+  if (e >= total) return;
+  const float* src = dg + (e / ll) * H * ll + e % ll;
+  float s = 0.f;
+  for (int h = 0; h < H; ++h) s += src[h * ll];
+  dgs[e] = s;
+}
+
+// launch 5: kRowTile rows of dC (blockIdx.x even) or dB (odd) of one
+// (batch, chunk), N columns; the heads in order, so every sum has one order:
+//   dC = Σ_h dG_h B + Σ_h (exp(acum_h) ⊙ dY_h) S_hᵀ,
+//   dB = Σ_h dG_hᵀ C + Σ_h (w_h ⊙ X_h) D_hᵀ,
+// the first term over the L keys of Σ_h dG (launch 4), the second over the
+// H·P pairs (h, p), one 32-deep slab of p at a time
+__global__ void __launch_bounds__(kGradThreads)
+bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+               const float* __restrict__ bm, const float* __restrict__ cm,
+               const float* __restrict__ acum,
+               const float* __restrict__ states,
+               const float* __restrict__ dstates,
+               const float* __restrict__ dgs, float* __restrict__ db,
+               float* __restrict__ dc, int NC, int L, int H, int P, int N,
+               int LP) {
+  __shared__ float as[KS * GLD];
+  __shared__ float bs[KS * GLD];
+  __shared__ float ex[kRowTile];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const bool is_b = blockIdx.x & 1;
+  const int r0 = (blockIdx.x >> 1) * kRowTile;
+  const size_t bc = static_cast<size_t>(blockIdx.z) * NC + blockIdx.y;
+  const size_t xrow = static_cast<size_t>(H) * P;
+  const float* gs = dgs + bc * L * L;              // Σ_h dG [i][j]
+  const float* other = (is_b ? cm : bm) + bc * L * N;
+  const float* src = (is_b ? x : dy) + bc * L * xrow;
+  const float* st = is_b ? dstates : states;
+  float acc[4][8];
+  zero_tile(acc);
+  for (int k0 = 0; k0 < L; k0 += KS) {
+    if (is_b)   // A[k][r] = Σ dG[k0 + k][r0 + r]
+      fill_by_col<kRowTile>(as, [&](int k, int r) {
+        return k0 + k < L && r0 + r < L ? gs[(k0 + k) * L + r0 + r] : 0.f;
+      });
+    else        // A[k][r] = Σ dG[r0 + r][k0 + k]
+      fill_by_k(as, kRowTile, [&](int k, int r) {
+        return k0 + k < L && r0 + r < L ? gs[(r0 + r) * L + k0 + k] : 0.f;
+      });
+    fill_by_col<NT>(bs, [&](int k, int n) {
+      return k0 + k < L && n < N ? other[(k0 + k) * N + n] : 0.f;
+    });
+    __syncthreads();
+    mm_slab(acc, as, bs, ty, tx);
+    __syncthreads();
+  }
+  for (int h = 0; h < H; ++h) {
+    const size_t bch = bc * H + h;
+    if (tid < kRowTile) {
+      const int i = r0 + tid;
+      const float* a = acum + bch * LP;
+      ex[tid] = i >= L ? 0.f : expf(is_b ? a[L - 1] - a[i] : a[i]);
+    }
+    __syncthreads();
+    const float* sh = st + bch * N * P;
+    for (int p0 = 0; p0 < P; p0 += KS) {
+      fill_by_k(as, kRowTile, [&](int k, int r) {
+        const int i = r0 + r;
+        return i < L && p0 + k < P
+                   ? ex[r] * src[i * xrow + static_cast<size_t>(h) * P + p0 +
+                                 k]
+                   : 0.f;
+      });
+      fill_by_k(bs, NT, [&](int k, int n) {
+        return n < N && p0 + k < P ? sh[n * P + p0 + k] : 0.f;
+      });
+      __syncthreads();
+      mm_slab(acc, as, bs, ty, tx);
+      __syncthreads();
+    }
+  }
+  float* out = (is_b ? db : dc) + bc * L * N;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = r0 + ty + 16 * r;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int n = tx + 16 * q;
+      if (i < L && n < N) out[i * N + n] = acc[r][q];
+    }
+  }
+}
+
 void set_attributes() {
   cudaFuncSetAttribute(chunk_prep_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -581,6 +996,12 @@ void set_attributes() {
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kPipeBytes);
   cudaFuncSetAttribute(chunk_state_kernel,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cudaFuncSetAttribute(bwd_state_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kPipeBytes);
+  cudaFuncSetAttribute(bwd_state_kernel,
                        cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   cudaFuncSetAttribute(chunk_scan_kernel,
@@ -653,4 +1074,54 @@ extern "C" int mamba2_scan_occupancy(int* blocks) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks + 3, chunk_scan_kernel, kThreads, kPipeBytes);
   return static_cast<int>(err);
+}
+
+// The backward's five launches on `stream`, from what the forward left in
+// its scratch: states (B, NC, H, N, P) the carried states, acum, decay and
+// gt as mamba2_scan_f32 wrote them, and y its output. dy is y's gradient,
+// dfinal the final state's (null: zeros), dinit the initial state's
+// (null: not wanted). Scratch of the caller: dstates (B, NC, H, N, P), dg
+// (B, NC, H, L, L), dgsum (B, NC, L, L). Out: dx (B, NC, L, H, P), da (B,
+// NC, L, H), db and dc (B, NC, L, N). hb_state and smem_state as for the
+// forward's launch 2. Returns the first launch error, or 0.
+extern "C" int mamba2_scan_bwd_f32(
+    const float* x, const float* b, const float* c, const float* y,
+    const float* dy, const float* dfinal, float* dinit, const float* states,
+    const float* acum, const float* decay, const float* gt, float* dstates,
+    float* dg, float* dgsum, float* dx, float* da, float* db, float* dc,
+    int B, int NC, int L, int H, int P, int N, int hb_state, int smem_state,
+    void* stream) {
+  if (smem_state != kPipeBytes || hb_state < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int LP = (L + 3) / 4 * 4;
+  set_attributes();
+  bwd_state_kernel<<<dim3((H + hb_state - 1) / hb_state, NC, B), kThreads,
+                     kPipeBytes, st>>>(dy, c, acum, dstates, NC, L, H, P, N,
+                                       LP, hb_state);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t quads = static_cast<size_t>(B) * H * N * P / 4;
+  bwd_pass_kernel<<<static_cast<unsigned>((quads + kPassThreads - 1) /
+                                          kPassThreads),
+                    kPassThreads, 0, st>>>(dstates, decay, dfinal, dinit, B,
+                                           NC, H, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_chunk_kernel<<<dim3(H, NC, B), kGradThreads, 0, st>>>(
+      x, dy, y, gt, b, acum, decay, states, dstates, dx, dg, da, NC, L, H, P,
+      N, LP);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t ll = static_cast<size_t>(L) * L;
+  const size_t total = static_cast<size_t>(B) * NC * ll;
+  bwd_dg_sum_kernel<<<static_cast<unsigned>((total + kPassThreads - 1) /
+                                            kPassThreads),
+                      kPassThreads, 0, st>>>(dg, dgsum, H, ll, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_bc_kernel<<<dim3(2 * ((L + kRowTile - 1) / kRowTile), NC, B),
+                  kGradThreads, 0, st>>>(x, dy, b, c, acum, states, dstates,
+                                         dgsum, db, dc, NC, L, H, P, N, LP);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,11 +19,14 @@ tensors on a CUDA device launch the kernel or raise — there is no
 fallback. ``mamba_chunk_scan.launches`` counts the kernel's calls (one per
 call, whose four launches run on the current stream), and nothing else.
 
-B5 has no backward (ROADMAP B8; the JAX package has none either: its
-training differentiates the einsum ``ssd_chunked``). On a CUDA device,
-with grad mode on and an input that requires grad, the wrapper raises
-``NotImplementedError`` rather than return a result detached from the
-graph.
+``mamba_chunk_scan_backward`` is B5's backward, the VJP of the model's
+``ssd_chunked`` (the JAX package has no Pallas backward: its training
+differentiates that einsum), five more launches of the same source from
+the carried states, acum, decay and Gᵀ the forward left in its scratch;
+``ref.mamba_chunk_scan_backward_ref`` on the CPU.
+``mamba_chunk_scan_backward.launches`` counts its calls. ``MambaChunkScan``
+is the ``torch.autograd.Function`` of the two, the way the model reaches
+B5 (``ops.mamba_chunk_scan_op``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from .moe_gmm import H100_SMS
 # argtypes of every extern "C" function, by symbol
 _SIG = {"mamba2_scan_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
+        "mamba2_scan_bwd_f32": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
         "mamba2_scan_occupancy": [ctypes.c_void_p]}
 MAX_L, MAX_N, MAX_P = 128, 128, 64     # the kernel's shared-memory tiles
 _GRID_YZ = 65535                       # gridDim.y (chunks), gridDim.z (batch)
@@ -54,6 +59,10 @@ PREP_SMEM = 4 * (32 + MAX_L) * (MAX_N + 4)
 WAVES = 2             # launches 2 and 4 take fewer heads a block below this
 KERNELS = ("chunk_prep_kernel", "chunk_state_kernel", "state_pass_kernel",
            "chunk_scan_kernel")
+# the backward's five launches, in order (the first two on the bodies of
+# chunk_state and state_pass)
+BACKWARD_KERNELS = ("bwd_state_kernel", "bwd_pass_kernel", "bwd_chunk_kernel",
+                    "bwd_dg_sum_kernel", "bwd_bc_kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,17 +197,20 @@ def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD chunk scan. xdt (B, NC, L, H, P), a_dt (B, NC, L, H), b and c
     (B, NC, L, N), init_state (B, H, P, N) or None (zeros) → (y (B, NC, L,
-    H, P), final state (B, H, P, N)), fp32."""
+    H, P), final state (B, H, P, N)), fp32. No autograd graph: the model
+    differentiates it through ``MambaChunkScan``."""
     if xdt.device.type == "cpu":
         return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state)
+    y, state, _ = _launch(xdt, a_dt, b, c, init_state)
+    return y, state
+
+
+def _launch(xdt, a_dt, b, c, init_state):
+    """B5 on a CUDA device: (y, final state, the scratch by name — states
+    (B, NC, H, N, P) now the carried ones, acum, decay, ct, gt — that the
+    backward reads)."""
     if xdt.device.type != "cuda":
         raise ValueError(f"no mamba_chunk_scan for {xdt.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (xdt, a_dt, b, c, init_state)):
-        raise NotImplementedError(
-            "mamba_chunk_scan has no backward kernel yet (ROADMAP B8): the "
-            "SSM and hybrid families do not train on the card")
     _check(xdt, a_dt, b, c, init_state)
     bsz, nc, l, h, p = xdt.shape
     n = b.shape[-1]
@@ -212,20 +224,121 @@ def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     order = ("states", "acum", "ct", "gt", "decay")
     sizes = [torch.Size(plan.scratch[k]).numel() for k in order]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    ptrs = dict(zip(order, (t.data_ptr() for t in flat.split(sizes))))
+    scratch = {k: t.view(plan.scratch[k])
+               for k, t in zip(order, flat.split(sizes))}
     fn = _function("mamba2_scan_f32")
     s0 = None if init_state is None else init_state.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(xdt.data_ptr(), a_dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-                s0, y.data_ptr(), state.data_ptr(), ptrs["states"],
-                ptrs["decay"], ptrs["acum"], ptrs["ct"], ptrs["gt"], bsz,
-                nc, l, h, p, n, plan.state.heads, plan.scan.heads,
+                s0, y.data_ptr(), state.data_ptr(),
+                *(scratch[k].data_ptr() for k in ("states", "decay", "acum",
+                                                  "ct", "gt")),
+                bsz, nc, l, h, p, n, plan.state.heads, plan.scan.heads,
                 plan.prep.smem, plan.state.smem, plan.scan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"mamba_chunk_scan launch failed: cudaError {rc}")
     mamba_chunk_scan.launches += 1
-    return y, state
+    return y, state, scratch
 
 
 mamba_chunk_scan.launches = 0
+
+
+def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
+                              saved, needs):
+    """B5's backward: the gradients (dxdt, da_dt, db, dc, dinit) of
+    ``mamba_chunk_scan(xdt, a_dt, b, c, init_state)`` for y's gradient
+    ``dy`` and the final state's ``dfinal`` (either None: zeros), each
+    None where ``needs`` (five flags, the inputs' order) says it is not
+    wanted. ``saved``: on a CUDA device the forward's y and its scratch
+    (``_launch``), unused on the CPU, where the plain version runs."""
+    if dy is None:
+        dy = torch.zeros_like(xdt)
+    if xdt.device.type == "cpu":
+        grads = ref.mamba_chunk_scan_backward_ref(xdt, a_dt, b, c,
+                                                  init_state, dy, dfinal)
+        return tuple(g if need else None for g, need in zip(grads, needs))
+    if xdt.device.type != "cuda":
+        raise ValueError(f"no mamba_chunk_scan_backward for {xdt.device}")
+    _check(xdt, a_dt, b, c, init_state)
+    dy = dy.contiguous()
+    if dy.data_ptr() % 16:     # launch 1 copies dY's rows 16 bytes at a time
+        dy = dy.clone()
+    dfinal = None if dfinal is None else dfinal.contiguous()
+    bsz, nc, l, h, p = xdt.shape
+    n = b.shape[-1]
+    for name, t, shape in (("dy", dy, xdt.shape),
+                           ("dfinal", dfinal, (bsz, h, p, n))):
+        if t is not None and (t.device != xdt.device
+                              or t.dtype != torch.float32
+                              or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{name} must be float32 {tuple(shape)} on "
+                             f"{xdt.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    y, scratch = saved
+    dev = xdt.device
+    plan = scan_plan(bsz, nc, l, h, p, n)
+    dx, da = torch.empty_like(xdt), torch.empty_like(a_dt)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    dinit = (torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+             if needs[4] else None)
+    # dstates (U, then D = dS_{c+1}) in the forward's state layout, dG a
+    # head, Σ_h dG
+    shapes = {"dstates": (bsz, nc, h, n, p), "dg": (bsz, nc, h, l, l),
+              "dgsum": (bsz, nc, l, l)}
+    sizes = [torch.Size(v).numel() for v in shapes.values()]
+    work = dict(zip(shapes, torch.empty(sum(sizes), dtype=torch.float32,
+                                        device=dev).split(sizes)))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _function("mamba2_scan_bwd_f32")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(xdt.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                dy.data_ptr(), ptr(dfinal), ptr(dinit),
+                *(scratch[k].data_ptr() for k in ("states", "acum", "decay",
+                                                  "gt")),
+                *(work[k].data_ptr() for k in ("dstates", "dg", "dgsum")),
+                dx.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                bsz, nc, l, h, p, n, plan.state.heads, plan.state.smem,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_chunk_scan_backward launch failed: "
+                           f"cudaError {rc}")
+    mamba_chunk_scan_backward.launches += 1
+    return tuple(g if need else None
+                 for g, need in zip((dx, da, db, dc, dinit), needs))
+
+
+mamba_chunk_scan_backward.launches = 0
+
+
+class MambaChunkScan(torch.autograd.Function):
+    """``mamba_chunk_scan`` with its backward on ``mamba_chunk_scan_backward``
+    (one call, one launch count, a backward pass). On the CPU the forward
+    is ``ref.mamba_chunk_scan_ref`` and the backward
+    ``ref.mamba_chunk_scan_backward_ref``."""
+
+    @staticmethod
+    def forward(ctx, xdt, a_dt, b, c, init_state):
+        ctx.set_materialize_grads(False)
+        if xdt.device.type == "cpu":
+            ctx.save_for_backward(xdt, a_dt, b, c, init_state)
+            return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state)
+        y, state, scratch = _launch(xdt, a_dt, b, c, init_state)
+        ctx.save_for_backward(xdt, a_dt, b, c, init_state, y,
+                              *(scratch[k] for k in ("states", "acum",
+                                                     "decay", "gt")))
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xdt, a_dt, b, c, init_state, *rest = ctx.saved_tensors
+        saved = None
+        if rest:
+            y, states, acum, decay, gt = rest
+            saved = (y, {"states": states, "acum": acum, "decay": decay,
+                         "gt": gt})
+        return mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy,
+                                         dfinal, saved,
+                                         ctx.needs_input_grad)

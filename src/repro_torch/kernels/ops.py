@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from . import ref
-from .mamba2_scan import mamba_chunk_scan
+from .mamba2_scan import MambaChunkScan
 from .moe_gmm import MoeGmm
 from .paged_attention import (paged_attention, paged_attention_ragged,
                               paged_attention_ragged_quant)
@@ -90,7 +90,9 @@ def mamba_chunk_scan_op(xdt, a_dt, b, c, init_state=None):
     (B, H, P, N), the model convention), what the model's ``ssd_chunked``
     computes. The inputs are made contiguous here (``b`` and ``c`` are
     split views of the conv output); unlike the TPU op this one takes an
-    initial state, which ``mamba_seq`` seeds from its cache."""
-    return mamba_chunk_scan(
+    initial state, which ``mamba_seq`` seeds from its cache.
+    Differentiable (``MambaChunkScan``: its backward is B5's backward
+    kernel); without grad it is one ``mamba_chunk_scan`` launch."""
+    return MambaChunkScan.apply(
         xdt.contiguous(), a_dt.contiguous(), b.contiguous(), c.contiguous(),
         None if init_state is None else init_state.contiguous())

@@ -449,3 +449,165 @@ def mamba_chunk_scan_split_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
                                                      device=x.device))
     y_diag = torch.einsum("bchij,bcjhp->bcihp", m, x)
     return y_off + y_diag, carry.transpose(-1, -2)
+
+
+def _reverse_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """out_i = Σ_{i' >= i} t_i' along ``dim``."""
+    return torch.flip(torch.cumsum(torch.flip(t, (dim,)), dim), (dim,))
+
+
+def mamba_chunk_scan_backward_ref(xdt, a_dt, b, c, init_state, dy, dfinal):
+    """The VJP of ``mamba_chunk_scan_ref`` (the model's ``ssd_chunked``),
+    written out, in fp32 (fp64 for fp64 inputs). Shapes as the forward's;
+    ``dy`` is y's gradient (B, NC, L, H, P), ``dfinal`` the final state's
+    (B, H, P, N) or None (zeros), ``init_state`` None for zeros. Returns
+    (dxdt, da_dt, db, dc, dinit), dinit (B, H, P, N).
+
+    Per (batch, chunk, head), A = cumsum(a) in the chunk, A_L its last
+    entry, S the state carried into the chunk, w = exp(A_L − A), M = (C Bᵀ)
+    ⊙ exp(A_i − A_j) on i >= j: y = M X + exp(A) ⊙ (C Sᵀ), the chunk's
+    own state st = (w ⊙ B)ᵀ X, S_next = exp(A_L) S + st. Backward: from
+    dS_NC = dfinal, D = dS_{c+1} and dS_c = exp(A_L) D + (exp(A) ⊙ dY)ᵀ
+    C; dX = Mᵀ dY + w ⊙ (B Dᵀ); dM = dY Xᵀ on i >= j, dG = dM ⊙
+    exp(A_i − A_j), dB = Σ_h dGᵀ C + w ⊙ (X D), dC = Σ_h dG B + exp(A) ⊙
+    (dY S); dA = rowsum(Q) − colsum(Q) (Q = dM ⊙ M) + Σ_p dY ⊙ y_off −
+    Σ_p X ⊙ (the st term of dX), plus at A_L that term's total and
+    Σ D ⊙ exp(A_L) S; da is dA's reverse cumulative sum in the chunk."""
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x, a, b, c, dy = (t.to(dt) for t in (xdt, a_dt, b, c, dy))
+    bsz, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    acum = torch.cumsum(a, dim=2)                             # (b,c,l,h)
+    decay = torch.exp(acum[:, :, -1])                         # (b,c,h)
+    ldec = torch.exp(segsum(a))                               # (b,c,h,i,j)
+    m = torch.einsum("bcin,bcjn->bcij", c, b)[:, :, None] * ldec
+    w = torch.exp(acum[:, :, -1:] - acum)                     # (b,c,l,h)
+    ea = torch.exp(acum)
+    own = torch.einsum("bcjn,bcjhp->bchpn", b, x * w[..., None])
+    carry = (torch.zeros(bsz, h, p, n, dtype=dt, device=x.device)
+             if init_state is None else init_state.to(dt))
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * decay[:, i, :, None, None] + own[:, i]
+    s = torch.stack(prev, dim=1)                              # (b,c,h,p,n)
+    u = torch.einsum("bcin,bcihp->bchpn", c, dy * ea[..., None])
+    ds = (torch.zeros(bsz, h, p, n, dtype=dt, device=x.device)
+          if dfinal is None else dfinal.to(dt))
+    after = [None] * nc
+    for i in reversed(range(nc)):
+        after[i] = ds
+        ds = ds * decay[:, i, :, None, None] + u[:, i]
+    d = torch.stack(after, dim=1)                             # (b,c,h,p,n)
+    st_term = w[..., None] * torch.einsum("bcjn,bchpn->bcjhp", b, d)
+    dx = torch.einsum("bchij,bcihp->bcjhp", m, dy) + st_term
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    dm = torch.einsum("bcihp,bcjhp->bchij", dy, x) * causal
+    dg = dm * ldec
+    db = (torch.einsum("bchij,bcin->bcjn", dg, c)
+          + torch.einsum("bcjh,bcjhp,bchpn->bcjn", w, x, d))
+    dc = (torch.einsum("bchij,bcjn->bcin", dg, b)
+          + torch.einsum("bcih,bcihp,bchpn->bcin", ea, dy, s))
+    q = dm * m
+    y_off = ea[..., None] * torch.einsum("bcin,bchpn->bcihp", c, s)
+    t = (x * st_term).sum(-1)                                 # (b,c,l,h)
+    dacum = (q.sum(-1) - q.sum(-2)).permute(0, 1, 3, 2) \
+        + (dy * y_off).sum(-1) - t                            # (b,c,l,h)
+    dacum[:, :, -1] += t.sum(2) + decay * (d * s).sum((-1, -2))
+    return (dx, _reverse_cumsum(dacum, 2), db, dc, ds)
+
+
+def mamba_chunk_scan_backward_split_ref(xdt, a_dt, b, c, init_state, dy,
+                                        dfinal, slab: int = 32):
+    """The backward as kernel B5's backward splits it (csrc/mamba2_scan.cu,
+    ``mamba2_scan_bwd_f32``), in plain PyTorch (fp32, or fp64 for fp64
+    inputs), same contract as ``mamba_chunk_scan_backward_ref``. It starts
+    from what the forward leaves: acum, decay, G = C Bᵀ (read on i >= j
+    only), the carried states in the kernel's (N, P) layout and y.
+
+    1. each chunk's own dS term U = Cᵀ (exp(acum) ⊙ dY), ``slab`` steps at
+       a time;
+    2. the chunks from the last: U replaced by D = dS_{c+1}, dS_0 out;
+    3. per (batch, chunk, head): dM = dY Xᵀ over ``slab``-wide slabs of p;
+       dG = dM ⊙ exp(acum_i − acum_j) on i >= j (a select), 0 above;
+       dX = w ⊙ (B D) over slabs of n, then + Mᵀ dY over slabs of keys;
+       dacum_i = Σ_p dY_ip y_ip − colsum(dG ⊙ G)_i − T_i with T_j = Σ_p
+       X_jp (w ⊙ B D)_jp, at L − 1 also + Σ_j T_j + decay · Σ D ⊙ S (Σ_p
+       dY ⊙ y is the row sums of dM ⊙ M plus Σ_p dY ⊙ y_off); da its
+       reverse cumulative sum;
+    4. Σ_h dG in head order;
+    5. dC = (Σ_h dG) B + Σ_h (exp(acum) ⊙ dY_h) S_hᵀ and dB = (Σ_h dG)ᵀ C
+       + Σ_h (w ⊙ X_h) D_hᵀ: the keys in slabs, then the heads in order,
+       each head's p in slabs."""
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x, a, b, c, dy = (t.to(dt) for t in (xdt, a_dt, b, c, dy))
+    bsz, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    dev = x.device
+    # what the forward leaves
+    y, _ = mamba_chunk_scan_split_ref(x, a, b, c, init_state, slab)
+    acum = torch.cumsum(a, dim=2)                             # (b,c,l,h)
+    decay = torch.exp(acum[:, :, -1])                         # (b,c,h)
+    g = torch.einsum("bcin,bcjn->bcij", c, b)
+    w = torch.exp(acum[:, :, -1:] - acum)                     # (b,c,l,h)
+    ea = torch.exp(acum)
+    own = torch.einsum("bcjn,bcjhp->bchnp", b, x * w[..., None])
+    carry = (torch.zeros(bsz, h, n, p, dtype=dt, device=dev)
+             if init_state is None else init_state.to(dt).transpose(-1, -2))
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * decay[:, i, :, None, None] + own[:, i]
+    s = torch.stack(prev, dim=1)                              # (b,c,h,n,p)
+    # 1. U, slab by slab of steps
+    wdy = dy * ea[..., None]
+    u = sum(torch.einsum("bcjn,bcjhp->bchnp", c[:, :, j0:j0 + slab],
+                         wdy[:, :, j0:j0 + slab]) for j0 in range(0, l, slab))
+    # 2. the reverse state pass
+    ds = (torch.zeros(bsz, h, n, p, dtype=dt, device=dev) if dfinal is None
+          else dfinal.to(dt).transpose(-1, -2))
+    after = [None] * nc
+    for i in reversed(range(nc)):
+        after[i] = ds
+        ds = ds * decay[:, i, :, None, None] + u[:, i]
+    d = torch.stack(after, dim=1)                             # (b,c,h,n,p)
+    # 3. per (batch, chunk, head)
+    seg = acum.permute(0, 1, 3, 2)                            # (b,c,h,l)
+    diff = seg[..., :, None] - seg[..., None, :]              # (b,c,h,i,j)
+    causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+    zero = torch.zeros((), dtype=dt, device=dev)
+    dm = sum(torch.einsum("bcihp,bcjhp->bchij", dy[..., p0:p0 + slab],
+                          x[..., p0:p0 + slab]) for p0 in range(0, p, slab))
+    dec = torch.exp(diff.masked_fill(~causal, 0.0))
+    dg = torch.where(causal, dm * dec, zero)
+    colq = (dg * g[:, :, None]).sum(-2)                       # (b,c,h,j)
+    dx_st = sum(torch.einsum("bcjn,bchnp->bcjhp", b[..., n0:n0 + slab],
+                             d[:, :, :, n0:n0 + slab])
+                for n0 in range(0, n, slab)) * w[..., None]
+    t = (x * dx_st).sum(-1)                                   # (b,c,l,h)
+    m = torch.where(causal, g[:, :, None] * dec, zero)        # (b,c,h,i,j)
+    dx = dx_st
+    for i0 in range(0, l, slab):
+        dx = dx + torch.einsum("bchij,bcihp->bcjhp", m[..., i0:i0 + slab, :],
+                               dy[:, :, i0:i0 + slab])
+    dacum = (dy * y).sum(-1) - colq.permute(0, 1, 3, 2) - t   # (b,c,l,h)
+    dacum[:, :, -1] += t.sum(2) + decay * (d * s).sum((-1, -2))
+    da = _reverse_cumsum(dacum, 2)
+    # 4. Σ_h dG, in head order
+    dgs = dg[:, :, 0]
+    for hh in range(1, h):
+        dgs = dgs + dg[:, :, hh]
+    # 5. dC and dB: the keys in slabs, then the heads in order
+    dc = sum(torch.einsum("bcij,bcjn->bcin", dgs[..., j0:j0 + slab],
+                          b[:, :, j0:j0 + slab]) for j0 in range(0, l, slab))
+    db = sum(torch.einsum("bcij,bcin->bcjn", dgs[:, :, i0:i0 + slab],
+                          c[:, :, i0:i0 + slab]) for i0 in range(0, l, slab))
+    wx = x * w[..., None]
+    for hh in range(h):
+        for p0 in range(0, p, slab):
+            ps = slice(p0, p0 + slab)
+            dc = dc + torch.einsum("bcip,bcnp->bcin", wdy[:, :, :, hh, ps],
+                                   s[:, :, hh, :, ps])
+            db = db + torch.einsum("bcjp,bcnp->bcjn", wx[:, :, :, hh, ps],
+                                   d[:, :, hh, :, ps])
+    return dx, da, db, dc, ds.transpose(-1, -2)

@@ -13,8 +13,9 @@ paths, the JAX package's three entry points.
     layer, each checkpointed under ``remat`` (``torch.utils.checkpoint``
     where JAX uses ``jax.checkpoint``), then ``chunked_ce_loss``. Windowed
     layers run the unbanded windowed flash here, as JAX trains them; only
-    the prefill bands. The SSM and hybrid families raise
-    ``NotImplementedError``: B5 has no backward kernel yet (ROADMAP B8);
+    the prefill bands. The SSM and hybrid families train through every
+    Mamba2 block, each checkpointed under ``remat``, the hybrid's shared
+    attention block without a cache;
   * ``prefill(params, inputs, max_len)`` — whole prompt (tokens (B, S), or
     ``{"embeds": (B, S, d)}`` for the VLM backbone) → last logits and the
     cache: ring KV caches of width ``min(window, max_len)`` per attention
@@ -24,9 +25,11 @@ paths, the JAX package's three entry points.
   * ``init_cache(batch, max_len)`` — the zero cache.
 
 Kernels on the card: every Mamba2 block's prefill chunk scan is kernel B5
-(``mamba2.ssd_chunked``), and the MoE FFN under ``moe_impl="capacity"``
-runs its three expert GEMMs on kernel B4 (``moe.moe_capacity``), in
-training also their backward GEMMs (``kernels.moe_gmm.MoeGmm``).
+(``mamba2.ssd_chunked``), in training also its backward
+(``kernels.mamba2_scan.MambaChunkScan``), and the MoE FFN under
+``moe_impl="capacity"`` runs its three expert GEMMs on kernel B4
+(``moe.moe_capacity``), in training also their backward GEMMs
+(``kernels.moe_gmm.MoeGmm``).
 Attention is ``attention.py``'s plain tensor ops, as the JAX model's is
 plain XLA.
 
@@ -226,20 +229,35 @@ class DecoderLM:
 
     def _mamba_span(self, params, x, mode, cache, lo, hi) -> tuple:
         """Mamba2 blocks ``lo:hi`` over ``x`` from the stacked ``cache``;
-        returns x and the blocks' new caches, one per block."""
+        returns x and the blocks' new caches, one per block. In "train"
+        mode there is no cache (zero states: the scan starts from none)
+        and none is returned; each block is checkpointed under ``remat``,
+        as JAX checkpoints the scan body."""
         layers = params["layers"]
         new = []
         for i in range(lo, hi):
+            if mode == "train":
+                x = remat_call(self.opts.remat, self._train_mamba,
+                               _layer(layers["mamba"], i), layers["ln"][i],
+                               x)
+                continue
             x, nc = self._mamba_block(_layer(layers["mamba"], i),
                                       layers["ln"][i], x, mode,
                                       _layer(cache, i))
             new.append(nc)
         return x, new
 
+    def _train_mamba(self, lp, ln_w, x):
+        return self._mamba_block(lp, ln_w, x, "train")[0]
+
     def _ssm_stack(self, params, x, mode, cache):
         """Every Mamba2 block over ``x``; ``cache`` is the stacked cache, or
         None for a fresh prefill (zero states, as the JAX one builds them
-        inline). Returns x and the new caches, stacked."""
+        inline). Returns x and the new caches, stacked (None in "train"
+        mode)."""
+        if mode == "train":
+            return self._mamba_span(params, x, mode, None, 0,
+                                    self.cfg.n_layers)[0], None
         if cache is None:
             cache = self._zero_mamba(x.shape[0], x.device)
         x, new = self._mamba_span(params, x, mode, cache, 0,
@@ -257,12 +275,13 @@ class DecoderLM:
             x, kv = L.attn_decode(sp["attn"], x, positions, cfg, window=None,
                                   ln_w=sp["ln1"], cache_k=kv[0],
                                   cache_v=kv[1], kv_pos=kv[2])
-        else:
+        else:   # no cache in "train" mode, as JAX
             x, kv = L.attn_seq(sp["attn"], x, positions, cfg, window=None,
                                ln_w=sp["ln1"],
                                impl=_auto_impl(self.opts, x.shape[1]),
                                flash_block=self.opts.flash_block,
-                               cache_width=max_len)
+                               cache_width=max_len if mode == "prefill"
+                               else None)
         x = x + L.mlp_apply(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
         return x, kv
 
@@ -271,12 +290,15 @@ class DecoderLM:
         ``attn_period`` blocks, then the remaining blocks. Returns x and
         the new cache: Mamba2 caches stacked along the layers, attention
         caches along the block's applications (decode updates the latter
-        in place)."""
+        in place); None in "train" mode."""
         cfg = self.cfg
         period = cfg.attn_period
         n_groups = cfg.n_layers // period
-        mam = (self._zero_mamba(x.shape[0], x.device) if cache is None
-               else cache["mamba"])
+        if mode == "train":
+            mam = None
+        else:
+            mam = (self._zero_mamba(x.shape[0], x.device) if cache is None
+                   else cache["mamba"])
         new_mam, new_attn = [], []
         for g in range(n_groups):
             x, nc = self._mamba_span(params, x, mode, mam, g * period,
@@ -288,11 +310,14 @@ class DecoderLM:
                 kv = (a["k"][g], a["v"][g], a["kv_pos"][g])
             x, kv = self._shared_attn_block(params["shared"], x, positions,
                                             mode, kv, max_len)
-            new_attn.append(_kv(kv))
+            if kv is not None:
+                new_attn.append(_kv(kv))
         if n_groups * period < cfg.n_layers:
             x, nc = self._mamba_span(params, x, mode, mam, n_groups * period,
                                      cfg.n_layers)
             new_mam += nc
+        if mode == "train":
+            return x, None
         attn = cache["attn"] if mode == "decode" else _stack(new_attn)
         return x, {"mamba": _stack(new_mam), "attn": attn}
 
@@ -350,16 +375,17 @@ class DecoderLM:
         (a 0-d fp32 tensor). Without labels the tokens shifted by one are
         the targets."""
         cfg = self.cfg
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) does not train in the port: its "
-                f"Mamba2 chunk scan (B5) has no backward kernel yet (ROADMAP "
-                f"B8)")
         x = self._embed(params, batch)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        h, _ = self._uniform_seq(params, x, positions, s, mode="train")
+        if cfg.family == "ssm":
+            h, _ = self._ssm_stack(params, x, "train", None)
+        elif cfg.family == "hybrid":
+            h, _ = self._hybrid_forward(params, x, positions, "train", None,
+                                        max_len=s)
+        else:
+            h, _ = self._uniform_seq(params, x, positions, s, mode="train")
         if "labels" in batch:
             labels, mask = batch["labels"], batch.get("mask")
         else:

@@ -1,10 +1,11 @@
 """Mamba2 (SSD — state-space duality) block in PyTorch.
 
 Port of ``src/repro/models/mamba2.py``. The chunked SSD scan of a prefill
-(``ssd_chunked``) goes through ``ops.mamba_chunk_scan_op``: kernel B5 on
-the card, its plain version (``kernels/ref.py::mamba_chunk_scan_ref``:
-the JAX module's einsums as pairwise contractions, its ``_segsum`` as
-``ref.segsum``) on the CPU. The decode step (``ssd_step``) stays tensor
+or a training pass (``ssd_chunked``) goes through
+``ops.mamba_chunk_scan_op``: kernel B5 on the card, its plain version
+(``kernels/ref.py::mamba_chunk_scan_ref``: the JAX module's einsums as
+pairwise contractions, its ``_segsum`` as ``ref.segsum``) on the CPU;
+its gradient is B5's backward kernel, or the plain backward on the CPU. The decode step (``ssd_step``) stays tensor
 ops, as the JAX package computes it outside any kernel.
 
 Layer layout (n_groups = 1):

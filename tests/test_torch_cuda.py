@@ -63,8 +63,14 @@ within 2e-4·√(contraction) of autograd through the plain version; a
 2-layer reduced mixtral-8x7b train step under ``capacity`` (and h2o-
 danube-1.8b under flash) gives the CPU's loss, gradients (nonzero where
 the CPU's are) and updated params, B4 launching 12 times per layer and
-router chunk (3 forward, 3 recomputed, 6 backward); B5 refuses to run
-under grad (no backward kernel yet, ROADMAP B8).
+router chunk (3 forward, 3 recomputed, 6 backward); the reduced
+mamba2-1.3b and zamba2-2.7b train steps give the CPU's loss, gradients
+and params, B5 launching twice per Mamba2 block (forward, recomputed)
+and its backward once. B5's backward (``MambaChunkScan``) gives every
+gradient within 1e-4 of its max |g| against the fp64 plain backward over
+chunk lengths on both sides of its slabs and both families' heads, with
+and without an initial state and a final-state gradient, writes every
+element of outputs that start as NaN, and repeats bitwise.
 """
 import dataclasses
 
@@ -82,13 +88,15 @@ from repro_torch.engine import (Engine, EngineConfig,
                                 RequestState)
 from repro_torch.engine.numerics import ModelTimedExecutor
 from repro_torch.engine.spec_decode import SmallModelDraft, TruncatedSelfDraft
-from repro_torch.kernels.mamba2_scan import mamba_chunk_scan
+from repro_torch.kernels.mamba2_scan import (MambaChunkScan, mamba_chunk_scan,
+                                             mamba_chunk_scan_backward)
 from repro_torch.kernels.moe_gmm import MoeGmm, moe_gmm
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (kv_quant_spec, quantize_kv, raw_pool,
                                       supports_fp8)
-from repro_torch.kernels.ref import (mamba_chunk_scan_ref, moe_gmm_ref,
+from repro_torch.kernels.ref import (mamba_chunk_scan_backward_ref,
+                                     mamba_chunk_scan_ref, moe_gmm_ref,
                                      paged_attention_ragged_quant_ref,
                                      paged_attention_ragged_ref,
                                      paged_attention_ref)
@@ -1298,7 +1306,9 @@ def test_moe_gmm_backward_matches_plain_version(cuda, shape):
 
 
 @pytest.mark.parametrize("arch, impl", [("mixtral-8x7b", "capacity"),
-                                        ("h2o-danube-1.8b", "flash")])
+                                        ("h2o-danube-1.8b", "flash"),
+                                        ("mamba2-1.3b", "auto"),
+                                        ("zamba2-2.7b", "auto")])
 def test_train_step_card_matches_cpu(cuda, arch, impl):
     """Reduced config at 2 layers, the port's weights, on the card and on
     the CPU. Loss within 1e-5 relative; every gradient leaf within 1e-4 of
@@ -1309,7 +1319,8 @@ def test_train_step_card_matches_cpu(cuda, arch, impl):
     gradients)."""
     cfg = get_reduced(arch)
     opts = (ModelOpts(moe_impl="capacity") if impl == "capacity"
-            else ModelOpts(attn_impl="flash", flash_block=8))
+            else ModelOpts(attn_impl="flash", flash_block=8)
+            if impl == "flash" else ModelOpts())
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 40)))
@@ -1317,12 +1328,13 @@ def test_train_step_card_matches_cpu(cuda, arch, impl):
     runs = {}
     for dev in ("cuda", "cpu"):
         m = build_model(cfg, opts, device=dev)
-        before = moe_gmm.launches
+        counts = (moe_gmm, mamba_chunk_scan, mamba_chunk_scan_backward)
+        before = [k.launches for k in counts]
         loss, grads = value_and_grad(m.train_loss, params_to(params, dev),
                                      {"tokens": toks.to(dev)})
         runs[dev] = (float(loss), params_to(grads, "cpu"),
-                     moe_gmm.launches - before)
-    (lc, gc_, n), (l0, g0, _) = runs["cuda"], runs["cpu"]
+                     [k.launches - b for k, b in zip(counts, before)])
+    (lc, gc_, (n, n_scan, n_bwd)), (l0, g0, _) = runs["cuda"], runs["cpu"]
     assert lc == pytest.approx(l0, rel=1e-5)
     for a, b in zip(leaves(gc_), leaves(g0)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
@@ -1337,12 +1349,90 @@ def test_train_step_card_matches_cpu(cuda, arch, impl):
         assert float((a - b).abs().max()) <= 1e-6
     chunks = router_chunks(2 * 40, cfg.moe) if cfg.moe else 0
     assert n == 12 * cfg.n_layers * chunks
+    mamba = cfg.family in ("ssm", "hybrid")
+    assert (n_scan, n_bwd) == ((2 * cfg.n_layers, cfg.n_layers) if mamba
+                               else (0, 0))
 
 
-def test_mamba_chunk_scan_refuses_grad(cuda):
-    x, a, b, c, _ = _scan_inputs((1, 2, 16, 2, 16, 16), cuda)
-    with pytest.raises(NotImplementedError, match="B8"):
-        mamba_chunk_scan(x.requires_grad_(), a, b, c)
+# (B, NC, L, H, P, N) of B5's backward: chunks on both sides of the 32-deep
+# slabs, a 5-step chunk, the reduced configs' heads, both families' full
+# heads (mamba2-1.3b H 64 N 128, zamba2-2.7b H 80 N 64), 20 chunks
+SCAN_BWD_SHAPES = [(1, 2, 5, 3, 12, 4), (2, 3, 33, 9, 16, 16),
+                   (2, 2, 16, 8, 16, 16), (1, 3, 100, 4, 64, 128),
+                   (2, 2, 128, 64, 64, 128), (2, 2, 128, 80, 64, 64),
+                   (1, 20, 128, 8, 64, 128)]
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mamba_chunk_scan_backward_matches_plain_version(cuda, shape, init,
+                                                         monkeypatch):
+    """Through ``MambaChunkScan`` (y and the final state both carry a
+    gradient): every gradient within 1e-4 of its max |g| against the fp64
+    plain backward, one backward launch a backward pass, its outputs
+    (NaN to start with) all written, and a repeat bitwise equal."""
+    x, a, b, c, s0 = _scan_inputs(shape, cuda, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+    dfin = torch.randn(s0.shape, generator=g, device=cuda)
+    want = mamba_chunk_scan_backward_ref(
+        *(t.double() for t in (x, a, b, c)), s0.double() if init else None,
+        dy.double(), dfin.double())
+    nan_like = lambda t, **kw: torch.full_like(t, float("nan"), **kw)
+    monkeypatch.setattr(torch, "empty_like", nan_like)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_() for t in (x, a, b, c)]
+        ins.append(s0.clone().requires_grad_() if init else None)
+        before = mamba_chunk_scan_backward.launches
+        y, fin = MambaChunkScan.apply(*ins)
+        assert y.grad_fn is not None
+        runs.append(torch.autograd.grad(
+            (y, fin), [t for t in ins if t is not None], (dy, dfin)))
+        torch.cuda.synchronize()
+        assert mamba_chunk_scan_backward.launches == before + 1
+    for got, again, exact in zip(runs[0], runs[1], want):
+        scale = float(exact.abs().max())
+        assert torch.isfinite(got).all()
+        assert float((got.double() - exact).abs().max()) <= 1e-4 * scale
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_mamba_chunk_scan_grad_through_backward_kernel(cuda, arch):
+    """At the family's full heads (B 2 x 256 tokens): ``ops.
+    mamba_chunk_scan_op`` under grad returns tensors with a ``grad_fn``
+    whose backward launches B5's backward, the gradients of y alone within
+    1e-4 of the fp64 plain backward's max and bitwise equal on a repeat;
+    without grad one forward launch and no graph."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.ops import mamba_chunk_scan_op
+    s = get(arch).ssm
+    d = get(arch).d_model
+    shape = (2, 256 // s.chunk, s.chunk, s.n_heads(d), s.head_dim,
+             s.d_state)
+    x, a, b, c, _ = _scan_inputs(shape, cuda, seed=4)
+    dy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda)
+    want = mamba_chunk_scan_backward_ref(
+        *(t.double() for t in (x, a, b, c)), None, dy.double(), None)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_() for t in (x, a, b, c)]
+        fwd, bwd = mamba_chunk_scan.launches, \
+            mamba_chunk_scan_backward.launches
+        y, fin = mamba_chunk_scan_op(*ins)
+        assert y.grad_fn is not None and fin.grad_fn is not None
+        runs.append(torch.autograd.grad(y, ins, dy))
+        torch.cuda.synchronize()
+        assert (mamba_chunk_scan.launches - fwd,
+                mamba_chunk_scan_backward.launches - bwd) == (1, 1)
+    for got, again, exact in zip(runs[0], runs[1], want):
+        assert float((got.double() - exact).abs().max()) <= \
+            1e-4 * float(exact.abs().max())
+        assert torch.equal(got, again)
     with torch.no_grad():
-        y, _ = mamba_chunk_scan(x, a, b, c)
-    assert torch.isfinite(y).all()
+        fwd = mamba_chunk_scan.launches
+        y, _ = mamba_chunk_scan_op(x, a, b, c)
+    assert y.grad_fn is None and mamba_chunk_scan.launches == fwd + 1

@@ -139,7 +139,7 @@ def test_plan_states_the_sources_shared_memory():
     assert int(consts["kAcumSlots"]) == tms.ACUM_SLOTS
     assert int(consts["kPrepThreads"]) == tms.PREP_THREADS
     assert int(consts["kPassThreads"]) == tms.PASS_THREADS
-    assert _kernels(src) == list(tms.KERNELS)
+    assert _kernels(src) == list(tms.KERNELS + tms.BACKWARD_KERNELS)
 
 
 def _scan_inputs(b, nc, l, h, p, n, seed=0):
@@ -204,13 +204,14 @@ def test_split_reference_forms_only_the_causal_tiles(monkeypatch):
 
 
 def test_profile_classes_every_b5_kernel():
-    """tools/profile_torch_serve.py files each of B5's kernels under
-    ``ssm``, demangled as the profiler prints it or mangled."""
+    """tools/profile_torch_serve.py files each of B5's kernels, forward
+    and backward, under ``ssm``, demangled as the profiler prints it or
+    mangled."""
     sys.path.insert(0, str(ROOT / "tools"))
     import profile_torch_serve as prof
     src = (_build.CSRC / _build.SOURCES["mamba2_scan"]).read_text()
     names = _kernels(src)
-    assert names == list(tms.KERNELS)
+    assert names == list(tms.KERNELS + tms.BACKWARD_KERNELS)
     for name in names:
         assert prof.classify(f"(anonymous namespace)::{name}(float const*)",
                              "kernel") == "ssm", name

@@ -10,20 +10,25 @@ step does. Pinned:
   ``jax.value_and_grad`` for stablelm-3b, deepseek-67b, mixtral-8x7b and
   kimi-k2-1t-a32b (``moe_impl`` exact and capacity: B4's plain version
   under the ``MoeGmm`` Function), pixtral-12b (``embeds`` with labels and a
-  mask) and gemma3-1b (unrolled local:global windows through the flash
-  Function, blocks of 8). Loss within rtol 1e-5; gradients within atol
+  mask), gemma3-1b (unrolled local:global windows through the flash
+  Function, blocks of 8), mamba2-1.3b and zamba2-2.7b (every Mamba2 block
+  through B5's plain forward and backward under the ``MambaChunkScan``
+  Function; zamba2's shared attention block applied once, then a
+  remainder block). Loss within rtol 1e-5; gradients within atol
   1e-5·max|g| plus rtol 1e-4 (fp32 sums in another order, through up to
-  two layers and the chunked cross-entropy);
+  four layers and the chunked cross-entropy);
 * the ``FlashAttention`` Function's gradients against JAX's custom VJP
   (blocks of 8, the last one padded) and against autograd through
   ``dense_attention``, causal, windowed and non-causal, within 1e-5;
 * the ``MoeGmm`` Function's gradients against autograd through
   ``moe_gmm_ref``, within 1e-5; B4's launch plan and checks take the
   backward GEMMs' shapes (dw's rows are d or f);
-* ``remat`` on and off give equal gradients; the SSM and hybrid families
-  refuse to train (ROADMAP B8); a windowed ``attn_seq`` without a cache,
-  and so ``train_loss``, never takes the banded path, while the prefill
-  still does.
+* ``remat`` on and off give equal gradients (mixtral-8x7b, mamba2-1.3b,
+  zamba2-2.7b); the hybrid's ``train_loss`` builds no KV cache (its
+  shared block runs with ``cache_width=None``, as JAX's), while its
+  prefill builds one of the prompt's width; a windowed ``attn_seq``
+  without a cache, and so ``train_loss``, never takes the banded path,
+  while the prefill still does.
 """
 import jax
 import jax.numpy as jnp
@@ -53,7 +58,8 @@ CASES = [("stablelm-3b", {}), ("deepseek-67b", {}),
          ("kimi-k2-1t-a32b", {"moe_impl": "exact"}),
          ("kimi-k2-1t-a32b", {"moe_impl": "capacity"}),
          ("pixtral-12b", {}),
-         ("gemma3-1b", {"attn_impl": "flash", "flash_block": 8})]
+         ("gemma3-1b", {"attn_impl": "flash", "flash_block": 8}),
+         ("mamba2-1.3b", {}), ("zamba2-2.7b", {})]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -194,13 +200,47 @@ def test_remat_on_and_off_give_equal_grads():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_ssm_and_hybrid_refuse_to_train(arch):
+def test_remat_on_and_off_give_equal_grads_ssm_hybrid(arch):
+    """Every Mamba2 block checkpointed or not: the same loss and
+    gradients (the recomputed forward repeats the first one)."""
     cfg = torch_get_reduced(arch)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    _, batch = _batch(cfg, 2, 20, seed=4)
+    out = []
+    for remat in (True, False):
+        m = build_model(cfg, ModelOpts(remat=remat), device="cpu")
+        out.append(value_and_grad(m.train_loss, params, batch))
+    assert float(out[0][0]) == float(out[1][0])
+    for a, b in zip(jax.tree.leaves(params_to_numpy(out[0][1])),
+                    jax.tree.leaves(params_to_numpy(out[1][1]))):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
+
+
+def test_hybrid_train_loss_builds_no_kv_cache(monkeypatch):
+    """zamba2-2.7b: ``train_loss`` runs every shared-block application
+    with ``cache_width=None`` and gets no cache back; the prefill asks
+    for caches of its ``max_len``."""
+    seen = []
+    attn_seq = L.attn_seq
+
+    def spy(*args, **kw):
+        out = attn_seq(*args, **kw)
+        seen.append((kw.get("cache_width"), out[1] is None))
+        return out
+    monkeypatch.setattr(L, "attn_seq", spy)
+    cfg = torch_get_reduced("zamba2-2.7b")
     m = build_model(cfg, device="cpu")
     params = m.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="B8"):
-        m.train_loss(params, {"tokens": torch.zeros((1, 8),
-                                                    dtype=torch.int32)})
+    _, batch = _batch(cfg, 1, 12, seed=6)
+    applications = cfg.n_layers // cfg.attn_period
+    loss, _ = value_and_grad(m.train_loss, params, batch)
+    assert torch.isfinite(loss)
+    assert seen == [(None, True)] * applications
+    seen.clear()
+    with torch.no_grad():
+        m.prefill(params, batch["tokens"], 16)
+    assert seen == [(16, False)] * applications
 
 
 def test_windowed_attn_seq_without_cache_does_not_band(monkeypatch):

@@ -28,9 +28,9 @@ to show what that check costs. Prints, as JSON lines:
   difference is the tracing overhead);
 * ``device_time`` — device milliseconds by kernel class (matmul,
   attention (every paged-attention kernel), moe (the expert GEMM B4),
-  ssm (the SSD chunk scan B5), KV scatter, other elementwise/index
-  kernels — quantization and the MoE dispatch among them — copies) from
-  the trace, and each class's share;
+  ssm (the SSD chunk scan B5 and its backward), KV scatter, other
+  elementwise/index kernels — quantization and the MoE dispatch among
+  them — copies) from the trace, and each class's share;
 * ``ssm_launches_ms`` (SSM archs) — the ``ssm`` class's device ms by
   B5's four launches (chunk prep, chunk states, state pass, chunk scan);
 * ``device_busy`` — the union of device activity over the traced serving
@@ -79,7 +79,10 @@ CLASSES = (("attention", ("decode_split_kernel", "merge_splits_kernel",
            ("moe", ("gmm_tile_kernel", "gmm_stream_kernel",
                     "splitk_reduce_kernel")),
            ("ssm", ("chunk_prep_kernel", "chunk_state_kernel",
-                    "state_pass_kernel", "chunk_scan_kernel")),
+                    "state_pass_kernel", "chunk_scan_kernel",
+                    "bwd_state_kernel", "bwd_pass_kernel",
+                    "bwd_chunk_kernel", "bwd_dg_sum_kernel",
+                    "bwd_bc_kernel")),
            ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "sm80_")),
            ("kv_scatter", ("index_put", "indexing_backward", "scatter")))
 
