@@ -119,6 +119,21 @@ nothing of the JAX package. Phases, each printing its own lines:
    dy and the four gradients / 3.35 TB/s, FLOPs / 67 TFLOP/s), the FLOPs
    dY Xᵀ and Mᵀ dY on the causal pairs and four L·N·P products per head
    and chunk, (Σ_h dG) C and (Σ_h dG) B on the causal pairs per chunk.
+3h. bf16 kernels vs plain — every kernel on bf16 inputs, as its Pallas
+   kernel takes them, at the main path's shapes (pages of 128): B1 at
+   steps (a) and (b) (bf16 q and pools), B2 at (a) (int8 pools, bf16 q),
+   B3 at (d) and (f), B4 at mixtral-8x7b's gate/up at C = 8 and 960 and
+   its backward pair at C = 640, B5 at 3e (l) and 3e (h) and its backward
+   at (l) (bf16 xdt, a_dt, b, c; the backward from a forward that wrote
+   y in fp32, dy fp32). Each against its plain version's fp32 math on
+   the same bf16 values. Gates: at most one bf16 rounding of the output,
+   |Δ| ≤ 2⁻⁸·|plain| + 1e-4·max|plain| (B5's state, fp32: 1e-4 of
+   max(1, max|plain|)); a repeat bitwise; poison unread (B1-B3). fp64 is
+   reported for B4 (first expert's first rows) and B5. Timing as in 3;
+   bound = max(bytes at 2 an element (B2's K/V 1 and its scales 4, B5's
+   states and dY 4) / 3.35 TB/s, the products at 989 TFLOP/s, the bf16
+   dense tensor rate); library: SDPA in bf16 (B1-B3), ``torch.bmm`` in
+   bf16 (B4), none for B5.
 4. serve parity — a 2-layer, full-width h2o-danube-1.8b with one set of
    random weights serves the same 6 requests on the card and on the CPU
    (plain path): greedy tokens equal, first-token logits within 1e-3.
@@ -280,6 +295,20 @@ nothing of the JAX package. Phases, each printing its own lines:
    decoder tokens plus 8 greedy steps, and ``train_loss`` of 2 × (256
    frames, 64 tokens), card and CPU. Gates: first logits within 1e-3,
    tokens equal, 4j's gradient gates, no kernel launched.
+4m. bf16 parity — h2o-danube-1.8b 2 layers, mixtral-8x7b 1 (capacity),
+   mamba2-1.3b 2, zamba2-2.7b 7, at full width, the port's own weights
+   (seed 1). Served at the JAX launch cells' serving opts (bf16 params,
+   compute and cache, flash prefill): 2 prompts of 256 tokens (mixtral
+   128) and 4 decode steps on the CPU, the card fed the CPU's tokens;
+   logits within 2e-2·max|logit| at every step, the card's greedy token
+   the CPU's wherever the CPU's top-2 margin is wider than that, B5 once
+   per Mamba2 block in the prefill and never in decode, B4 in both on
+   mixtral, no other kernel. Trained at the launch training opts (fp32
+   params, bf16 compute and cache, flash, capacity, remat, ce_chunk
+   2048), one sequence of the same length: loss within 1e-3 relative;
+   each gradient leaf within 2e-2 + 1.5 × the leaf's own bf16 noise (the
+   card's bf16 against its fp32 compute) of its fp32 max, none lost; B4
+   and B5 launched as in 4j and 4l.
 5e. SSM serving — mamba2-1.3b at full depth (48 layers, 5.8 GB of fp32
    weights, seed 0) through ``DecoderLM.prefill`` plus greedy
    ``decode_step``s, each step ending on its tokens' copy to the host:
@@ -306,12 +335,20 @@ nothing of the JAX package. Phases, each printing its own lines:
    64 greedy steps. Gates: finite logits, every token in [0, vocab), no
    kernel launched. Reports the prefill's seconds, the decode step's
    median host ms, output tokens/s and peak memory.
+5k. bf16 serving — ``DecoderLM`` at the launch serving opts, 5e's gates
+   and numbers (with B4's and B5's share of one more prefill's device
+   ms): (i) mixtral-8x7b at every published width with 16 of 32 layers
+   (46.4 GB of bf16 weights, the memory 5d's 8 fp32 layers take), 4
+   prompts of 2048 tokens then 32 greedy steps; (ii) mamba2-1.3b at full
+   depth on 5e (i)'s workload (8 × 2048, then 64 steps).
 6a-6c. training — ``make_train_step`` from the port's own weights (seed
-   0) over one fixed batch (seed 11): 6a h2o-danube-1.8b at full depth
-   and width, AdamW, 4 × 1024 tokens, 8 steps; 6b mixtral-8x7b at full
-   width with 2 layers, Adafactor, ``capacity``, 2 × 1024 tokens, 5
-   steps; 6c seamless-m4t-large-v2 at full depth and width, AdamW, 4 ×
-   (1024 frames, 256 decoder tokens), 5 steps. A checkpoint is saved
+   0) over one fixed batch (seed 11): 6a h2o-danube-1.8b at full width
+   with 12 of its 24 layers, AdamW, 4 × 1024 tokens, 8 steps; 6b
+   mixtral-8x7b at full width with 2 layers, Adafactor, ``capacity``, 2 ×
+   1024 tokens, 5 steps; 6c seamless-m4t-large-v2 at full width with 12
+   + 12 of its 24 + 24 layers, AdamW, 4 × (1024 frames, 256 decoder
+   tokens), 5 steps (6a's and 6c's depth halved to keep the script's
+   time once 3h-6f came: their checkpoint I/O took ~200 s). A checkpoint is saved
    after step 3 (``save_checkpoint`` under build/ckpt), then loaded onto
    the card and the remaining steps run again. Gates: losses finite and
    the last below the first; every step's gradient norm finite (so every
@@ -332,13 +369,22 @@ nothing of the JAX package. Phases, each printing its own lines:
    must repeat bit for bit. B5 launched twice per block a step and its
    backward once, no other kernel. Reports 6a's numbers and one profiled
    step's device ms with B5's forward and backward parts.
+6f. bf16 training — 6d's loop and gates at the launch training opts (fp32
+   params, bf16 compute and cache, flash, capacity, remat, ce_chunk
+   2048): (i) h2o-danube-1.8b at full depth on 6a's batch (4 × 1024,
+   AdamW, 5 steps); (ii) mamba2-1.3b at full depth on 6d's (4 × 2048; B5
+   on bf16 b and c, forward and backward).
 
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5, B5's backward; launches summed over every serving and
 training phase on the card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4l, 4f, 4g,
 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e (B1 and B2 launch in 4f, 4g,
 5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i, B4 in 4j and 6b, B5 and its
-backward in 4l, 6d and 6e); B1's
+backward in 4l, 6d and 6e; 4m, 5k and 6f are also summed alone as B4's,
+B5's and its backward's ``bf16_launches``); each kernel's 3h times as
+``bf16_*`` (B1 (b) as ``bf16_decode_*``, B3 (f) as ``bf16_chunk_*``, B4
+C=960 as ``bf16_prefill_*`` and its backward as ``bf16_backward_*``, B5
+(h) as ``bf16_hybrid_*``); B1's
 times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
@@ -417,13 +463,21 @@ from repro_torch.training.train_step import value_and_grad  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor rate, published
 ATOL_KERNEL = 1e-4
 ATOL_LOGITS = 1e-3
 N_TIMED, N_WARMUP = 20, 3
 H, HKV, D = 32, 8, 80            # h2o-danube-1.8b attention geometry
 
 
+_T0 = time.perf_counter()
+
+
 def _emit(tag: str, obj) -> None:
+    """One phase line: ``tag`` and ``obj`` as JSON, a record stamped with
+    the seconds since the script started (``elapsed_s``)."""
+    if isinstance(obj, dict):
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(f"{tag} {json.dumps(obj)}", flush=True)
 
 
@@ -507,12 +561,15 @@ def make_step(kind: str, page: int, device, seed: int = 0) -> Step:
     return Step(kind, q_lens, pos0, ctx, window, page, args)
 
 
-def step_bound(st: Step, kv_bytes: int = 4, scale_bytes: int = 0) -> dict:
+def step_bound(st: Step, kv_bytes: int = 4, scale_bytes: int = 0,
+               q_bytes: int = 4, flops_per_s: float = FP32_FLOPS_PER_S
+               ) -> dict:
     """Least time for the work this step's data needs: each input byte read
     once, each output byte written once; FLOPs of QK and PV over the keys
-    each row sees. ``kv_bytes`` per K/V element and ``scale_bytes`` per
-    (key, KV head) row scale; a quantized step also reads a scale-table
-    entry per page."""
+    each row sees, at ``flops_per_s``. ``kv_bytes`` per K/V element,
+    ``scale_bytes`` per (key, KV head) row scale and ``q_bytes`` per q and
+    output element; a quantized step also reads a scale-table entry per
+    page."""
     q = st.args[0]
     t = q.shape[0]
     g = H // HKV
@@ -529,12 +586,12 @@ def step_bound(st: Step, kv_bytes: int = 4, scale_bytes: int = 0) -> dict:
     pages_read = sum(-(-(hi) // st.page) - lo // st.page
                      for lo, hi in map(st.visible, range(len(st.q_lens))))
     tables = 2 if scale_bytes else 1
-    nbytes = (n_rows * H * D * 4                  # q rows owned
+    nbytes = (n_rows * H * D * q_bytes            # q rows owned
               + keys * HKV * (D * kv_bytes + scale_bytes) * 2  # K, V rows
               + pages_read * 4 * tables + len(st.q_lens) * 4 * 4
-              + t * H * D * 4)                    # output, padding included
+              + t * H * D * q_bytes)              # output, padding included
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -556,8 +613,8 @@ def library_call(st: Step):
         pg = tables[s].long()[idx // page]
         k = kp[pg, idx % page]                      # (L, Hkv, D)
         v = vp[pg, idx % page]
-        return (k.repeat_interleave(g, 1).transpose(0, 1),
-                v.repeat_interleave(g, 1).transpose(0, 1))   # (H, L, D)
+        return (k.repeat_interleave(g, 1).transpose(0, 1).to(q.dtype),
+                v.repeat_interleave(g, 1).transpose(0, 1).to(q.dtype))
 
     calls = []
     dec = [s for s in range(len(st.q_lens)) if st.q_lens[s] == 1]
@@ -565,7 +622,7 @@ def library_call(st: Step):
     if dec:
         spans = [st.visible(s) for s in dec]
         width = max(hi - lo for lo, hi in spans)
-        kb = torch.zeros(len(dec), H, width, D, device=dev)
+        kb = torch.zeros(len(dec), H, width, D, device=dev, dtype=q.dtype)
         vb = torch.zeros_like(kb)
         mask = torch.zeros(len(dec), 1, 1, width, dtype=torch.bool, device=dev)
         for i, (s, (lo, hi)) in enumerate(zip(dec, spans)):
@@ -769,10 +826,12 @@ def make_bstep(kind: str, page: int, device, seed: int = 0) -> BStep:
     return BStep(kind, tq, q_starts, ctx, window, page, args)
 
 
-def bstep_bound(st: BStep) -> dict:
+def bstep_bound(st: BStep, elem: int = 4,
+                flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
     """As ``step_bound``: each input byte read once (q, the visible K/V
-    rows, the table entries they need, metadata), the output written once;
-    FLOPs of QK and PV over the keys each row sees."""
+    rows, the table entries they need, metadata), the output written once,
+    ``elem`` bytes an element of q, K, V and the output; FLOPs of QK and PV
+    over the keys each row sees, at ``flops_per_s``."""
     g = H // HKV
     b = len(st.ctx)
     keys = flops = pages_read = 0
@@ -785,11 +844,11 @@ def bstep_bound(st: BStep) -> dict:
             k_hi = min(st.ctx[i], qp + 1)
             k_lo = 0 if st.window is None else max(0, qp - st.window + 1)
             flops += max(k_hi - k_lo, 0) * HKV * g * D * 4
-    q_bytes = b * st.tq * H * D * 4
-    nbytes = (q_bytes + keys * HKV * D * 4 * 2 + pages_read * 4 + b * 2 * 4
-              + q_bytes)
+    q_bytes = b * st.tq * H * D * elem
+    nbytes = (q_bytes + keys * HKV * D * elem * 2 + pages_read * 4
+              + b * 2 * 4 + q_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -805,7 +864,7 @@ def blibrary_call(st: BStep):
     dev = q.device
     spans = [st.visible(i) for i in range(b)]
     width = max(hi - lo for lo, hi in spans)
-    kb = torch.zeros(b, H, width, D, device=dev)
+    kb = torch.zeros(b, H, width, D, device=dev, dtype=q.dtype)
     vb = torch.zeros_like(kb)
     mask = torch.zeros(b, 1, st.tq, width, dtype=torch.bool, device=dev)
     for i, (lo, hi) in enumerate(spans):
@@ -1004,13 +1063,15 @@ def moe_steps() -> list:
     return steps
 
 
-def gmm_bound(e: int, c: int, k: int, n: int) -> dict:
-    """x and w read once, the output written once, fp32; 2·E·C·K·N FLOPs
-    at the fp32 rate of the CUDA cores."""
-    nbytes = 4 * (e * c * k + e * k * n + e * c * n)
+def gmm_bound(e: int, c: int, k: int, n: int, elem: int = 4,
+              flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
+    """x and w read once, the output written once, ``elem`` bytes an
+    element; 2·E·C·K·N FLOPs at ``flops_per_s`` (the fp32 rate of the CUDA
+    cores by default)."""
+    nbytes = elem * (e * c * k + e * k * n + e * c * n)
     flops = 2 * e * c * k * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -1096,22 +1157,31 @@ def scan_shape(cfg, batch: int, prompt: int) -> tuple:
             s.head_dim, s.d_state)
 
 
-def scan_bound(b, nc, l, h, p, n, carried) -> dict:
-    """xdt, a_dt, b, c and y once, fp32, with the initial and the final
-    state; FLOPs at the fp32 rate, as many as these
-    inputs need: CBᵀ on the L(L+1)/2 pairs j ≤ i the causal mask keeps,
+def _rate(*elems) -> float:
+    """The peak rate of products whose operands have these element sizes:
+    bf16's tensor rate when all are 2 bytes, else fp32's."""
+    return BF16_FLOPS_PER_S if set(elems) == {2} else FP32_FLOPS_PER_S
+
+
+def scan_bound(b, nc, l, h, p, n, carried, x_elem: int = 4,
+               bc_elem: int = 4) -> dict:
+    """xdt, a_dt and y once at ``x_elem`` bytes an element, b and c at
+    ``bc_elem``, with the initial and the final state (fp32); FLOPs, as
+    many as these inputs need, each product at its operands' rate
+    (``_rate``): CBᵀ on the L(L+1)/2 pairs j ≤ i the causal mask keeps,
     once per (batch, chunk) (B and C are shared by the heads); per head
     and chunk the masked scores times X on the same pairs and the chunk's
     own state (2·L·N·P), C · state (2·L·N·P) in the ``carried`` chunks a
     nonzero state enters, and the state carried across (2·P·N)."""
-    nbytes = 4 * (2 * b * nc * l * h * p + b * nc * l * h + 2 * b * nc * l * n
-                  + 2 * b * h * p * n)
+    nbytes = (x_elem * (2 * b * nc * l * h * p + b * nc * l * h)
+              + bc_elem * 2 * b * nc * l * n + 4 * 2 * b * h * p * n)
     tri = l * (l + 1) // 2
-    flops = (b * nc * 2 * n * tri
-             + b * nc * h * (2 * p * tri + 2 * l * n * p + 2 * p * n)
+    cb = b * nc * 2 * n * tri
+    flops = (cb + b * nc * h * (2 * p * tri + 2 * l * n * p + 2 * p * n)
              + b * carried * h * 2 * l * n * p)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = (cb / _rate(bc_elem) + (flops - cb) / _rate(x_elem, bc_elem)
+               ) * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -1200,16 +1270,18 @@ SSM_BACKWARD_STEPS = (("mamba2-1.3b", SSM_STEPS[0]),
 SCAN_NEEDS = (True, True, True, True, False)   # as in training: no dinit
 
 
-def scan_backward_bound(b, nc, l, h, p, n) -> dict:
-    """xdt, a_dt, b, c and y's gradient read and the four gradients
-    written once, fp32 (a zero start and no final-state gradient, as in
-    training); FLOPs at the fp32 rate, as many as these inputs need: per
-    head and chunk dY Xᵀ and Mᵀ dY on the L(L+1)/2 causal pairs (2·P
-    each) and four L·N·P products (Cᵀ (exp(A) ⊙ dY), B D, the head's terms
-    of dB and dC), per batch and chunk (Σ_h dG) C and (Σ_h dG) B on the
-    causal pairs (B and C are shared by the heads)."""
-    nbytes = 4 * (3 * b * nc * l * h * p + 2 * b * nc * l * h
-                  + 4 * b * nc * l * n)
+def scan_backward_bound(b, nc, l, h, p, n, bc_elem: int = 4) -> dict:
+    """xdt, a_dt (fp32), b, c (``bc_elem`` bytes an element) and y's
+    gradient (fp32) read and the four gradients written once, each in its
+    input's dtype (a zero start and no final-state gradient, as in
+    training); FLOPs at the fp32 rate (every product has an fp32 operand:
+    dY, X or Σ_h dG), as many as these inputs need: per head and chunk dY
+    Xᵀ and Mᵀ dY on the L(L+1)/2 causal pairs (2·P each) and four L·N·P
+    products (Cᵀ (exp(A) ⊙ dY), B D, the head's terms of dB and dC), per
+    batch and chunk (Σ_h dG) C and (Σ_h dG) B on the causal pairs (B and C
+    are shared by the heads)."""
+    nbytes = (4 * (3 * b * nc * l * h * p + 2 * b * nc * l * h)
+              + bc_elem * 4 * b * nc * l * n)
     tri = l * (l + 1) // 2
     flops = b * nc * h * (4 * p * tri + 8 * l * n * p) + b * nc * 4 * n * tri
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2206,7 +2278,8 @@ B5_KERNELS = ("chunk_prep_kernel", "chunk_state_kernel", "state_pass_kernel",
 
 def prefill_device_ms(fn) -> dict:
     """Device ms of one call of ``fn`` (every kernel, copy and memset of
-    its ``torch.profiler`` trace) and B5's four kernels' part of it."""
+    its ``torch.profiler`` trace) and B5's four kernels' and B4's
+    kernels' parts of it."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2219,10 +2292,12 @@ def prefill_device_ms(fn) -> dict:
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     total = sum(e["dur"] for e in events) / 1e3
-    b5 = sum(e["dur"] for e in events
-             if any(k in e.get("name", "") for k in B5_KERNELS)) / 1e3
+    b5, b4 = (sum(e["dur"] for e in events
+                  if any(k in e.get("name", "") for k in names)) / 1e3
+              for names in (B5_KERNELS, B4_KERNELS))
     return {"device_ms": total, "b5_device_ms": b5,
-            "b5_share": b5 / total if total else None}
+            "b5_share": b5 / total if total else None, "b4_device_ms": b4,
+            "b4_share": b4 / total if total else None}
 
 
 def _ring_positions_ok(cfg, cache: dict, seen: int) -> bool:
@@ -2235,7 +2310,8 @@ def _ring_positions_ok(cfg, cache: dict, seen: int) -> bool:
                            torch.arange(seen, device=kp.device,
                                         dtype=kp.dtype).expand_as(kp))
     ok = True
-    for i, c in enumerate(cache["kv"]):
+    kv = cache["kv"]      # stacked (one kv_pos) or one cache a layer
+    for i, c in enumerate([kv] if isinstance(kv, dict) else kv):
         lo = seen - min(cfg.layer_window(i) or seen, seen)
         kp = c["kv_pos"]
         ok &= torch.equal(kp.sort(-1).values,
@@ -2250,18 +2326,23 @@ DECODER_SERVE = ((8, 2048, 64),)
 SSM_SERVE = ((8, 2048, 64), (1, 32768, 16))
 
 
-def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
-    """Phases 5e (mamba2-1.3b, tagged ``ssm_serve``), 5h (zamba2-2.7b) and
-    5i (gemma3-1b): ``cfg`` at full depth and width with fp32 weights from
-    seed 0 through ``DecoderLM.prefill`` plus greedy ``decode_step``s, once
-    per workload. Gates: every token in [0, vocab); the attention caches,
+def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE,
+                        opts: Optional[ModelOpts] = None,
+                        tag: Optional[str] = None) -> list:
+    """Phases 5e (mamba2-1.3b, tagged ``ssm_serve``), 5h (zamba2-2.7b), 5i
+    (gemma3-1b) and 5k (``opts`` the bf16 serving opts, tagged
+    ``bf16_serve``): ``cfg`` at full depth and width with weights from
+    seed 0 in ``opts``' parameter dtype (fp32 by default) through
+    ``DecoderLM.prefill`` plus greedy ``decode_step``s, once per
+    workload. Gates: every token in [0, vocab); the attention caches,
     where there are any, hold the positions ``_ring_positions_ok`` says;
     B5 launched n_layers times per prefill at a shape phase 3e checked,
     never in decode. Reports the serving numbers and the device ms of one
-    more prefill by ``torch.profiler``, with B5's share."""
+    more prefill by ``torch.profiler``, with B5's and B4's shares."""
     cuda = torch.device(device).type == "cuda"
+    opts = opts or ModelOpts()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+                         device, opts.param_dtype)
     scan_steps = {"ssm": SSM_STEPS, "hybrid": HYBRID_SSM_STEPS}.get(
         cfg.family, ())
     checked = {scan_shape(cfg, b, s) for _, b, s in scan_steps}
@@ -2271,20 +2352,22 @@ def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
         if cuda:
             _release_memory()
             torch.cuda.reset_peak_memory_stats()
-        run = generate(cfg, params, device, prompts, steps)
+        run = generate(cfg, params, device, prompts, steps, opts)
         rings = (None if cfg.family == "ssm"
                  else _ring_positions_ok(cfg, run.cache, prompt + steps))
         n_out = run.tokens.size
         decode_s = sum(run.step_s)
         rec = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
                "prompt_tokens": prompt, "decode_steps": steps,
+               "param_dtype": str(opts.param_dtype),
                "prefill_s": run.prefill_s,
                "prefill_tok_per_s": batch * prompt / run.prefill_s,
                "decode_step_median_ms": statistics.median(run.step_s) * 1e3,
                "decode_tok_per_s": batch * steps / decode_s,
                "output_tokens": n_out,
                "output_tok_per_s": n_out / (run.prefill_s + decode_s),
-               "weight_bytes": sum(t.numel() * 4 for t in leaves(params)),
+               "weight_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves(params)),
                "max_memory_allocated_bytes": (
                    torch.cuda.max_memory_allocated() if cuda else None),
                "ring_positions_ok": rings,
@@ -2294,18 +2377,24 @@ def phase_decoder_serve(cfg, device, workloads=DECODER_SERVE) -> list:
               and run.tokens.shape == (batch, steps + 1)
               and rings is not False
               and _decoder_launches_ok(run, cfg, "capacity", cuda))
+        if cfg.n_layers != get(cfg.name).n_layers:
+            rec["reduced"] = [f"n_layers {get(cfg.name).n_layers} -> "
+                              f"{cfg.n_layers}"]
         if cfg.ssm is not None:
             rec["scan_shape"] = list(scan_shape(cfg, batch, prompt))
             ok &= tuple(rec["scan_shape"]) in checked
         del run
         if cuda:
             _release_memory()
-            model = DecoderLM(cfg, device=device)
+            model = DecoderLM(cfg, opts, device=device)
             x = torch.as_tensor(prompts, device=device)
             rec.update(prefill_device_ms(
                 lambda: model.prefill(params, x, prompt + steps)))
             del model, x
-        _emit("ssm_serve" if cfg.family == "ssm" else "decoder_serve", rec)
+        if tag is not None:
+            rec["phase"] = tag
+        _emit("bf16_serve" if tag == "5k" else "ssm_serve"
+              if cfg.family == "ssm" else "decoder_serve", rec)
         if not ok:
             raise AssertionError(f"{cfg.name} B={batch} S={prompt}: bad "
                                  f"tokens, ring positions, launches or "
@@ -2844,14 +2933,16 @@ def moe_backward_steps() -> list:
     return steps
 
 
-def gmm_backward_bound(e: int, c: int, k: int, n: int) -> dict:
+def gmm_backward_bound(e: int, c: int, k: int, n: int, elem: int = 4,
+                       flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
     """dx = dy · wᵀ and dw = xᵀ · dy: each reads its two operands once and
-    writes its output once, fp32, and does the forward's 2·E·C·K·N FLOPs
-    at the fp32 rate of the CUDA cores."""
-    nbytes = 4 * 2 * (e * c * k + e * k * n + e * c * n)
+    writes its output once, ``elem`` bytes an element, and does the
+    forward's 2·E·C·K·N FLOPs at ``flops_per_s`` (the fp32 rate of the
+    CUDA cores by default)."""
+    nbytes = elem * 2 * (e * c * k + e * k * n + e * c * n)
     flops = 4 * e * c * k * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -3239,20 +3330,24 @@ class TrainRun:
 
 
 def train_runs() -> list:
-    """6a h2o-danube-1.8b (every layer, AdamW, B 4 × 1024), 6b
+    """6a h2o-danube-1.8b (6 of 24 layers, AdamW, B 4 × 1024; 6f (i)
+    trains it at full depth), 6b
     mixtral-8x7b (2 layers, Adafactor, capacity, B 2 × 1024), 6c
-    seamless-m4t-large-v2 (every layer, AdamW, B 4 × (1024 frames, 256
-    decoder tokens)), 6d mamba2-1.3b (every layer, AdamW, B 4 × 2048) and
+    seamless-m4t-large-v2 (12 + 12 of 24 + 24 layers, AdamW, B 4 × (1024
+    frames, 256 decoder tokens)), 6d mamba2-1.3b (every layer, AdamW, B 4 × 2048) and
     6e zamba2-2.7b (every layer, AdamW, B 4 × 1024); 6d and 6e without a
     checkpoint (6a-6c cover its I/O, which does not depend on the
     family)."""
-    return [TrainRun("6a", get("h2o-danube-1.8b"), ModelOpts(),
+    return [TrainRun("6a", dataclasses.replace(get("h2o-danube-1.8b"),
+                                               n_layers=6), ModelOpts(),
                      OptConfig(name="adamw"), (4, 1024), 8),
             TrainRun("6b", dataclasses.replace(get("mixtral-8x7b"),
                                                n_layers=2),
                      ModelOpts(moe_impl="capacity"),
                      OptConfig(name="adafactor"), TRAIN_MOE_BATCH, 5),
-            TrainRun("6c", get("seamless-m4t-large-v2"), ModelOpts(),
+            TrainRun("6c", dataclasses.replace(
+                get("seamless-m4t-large-v2"), n_layers=12,
+                n_encoder_layers=12), ModelOpts(),
                      OptConfig(name="adamw"), (4, 1024, 256), 5),
             TrainRun("6d", get("mamba2-1.3b"), ModelOpts(),
                      OptConfig(name="adamw"), (4, 2048), 5, None),
@@ -3342,7 +3437,7 @@ def phase_train(run: TrainRun, device) -> dict:
     cfg, cuda = run.cfg, torch.device(device).type == "cuda"
     model = build_model(cfg, run.opts, device=device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+                         device, run.opts.param_dtype)
     counts = param_counts(cfg, params)
     batch = train_batch(run, device)
     step = make_train_step(model, run.opt)
@@ -3380,6 +3475,8 @@ def phase_train(run: TrainRun, device) -> dict:
     flops = model_flops(cfg, counts, run.batch)
     rec = {"phase": run.tag, "model": cfg.name, "layers": cfg.n_layers,
            "optimizer": run.opt.name,
+           "dtypes": {k: str(getattr(run.opts, k)) for k in (
+               "param_dtype", "compute_dtype", "cache_dtype")},
            "moe_impl": run.opts.moe_impl if cfg.moe is not None else None,
            "batch": list(run.batch), "steps": run.steps, **counts,
            "losses": losses, "grad_norms": norms, "step_s": step_s,
@@ -3387,9 +3484,10 @@ def phase_train(run: TrainRun, device) -> dict:
            "model_flops_per_step": flops,
            "model_tflop_per_s": flops / s / 1e12,
            "max_memory_allocated_bytes": peak, "launches": launches}
-    if cfg.n_layers != get(cfg.name).n_layers:
-        rec["reduced"] = [f"n_layers {get(cfg.name).n_layers} -> "
-                          f"{cfg.n_layers}"]
+    full = get(cfg.name)
+    rec["reduced"] = [f"{k} {getattr(full, k)} -> {getattr(cfg, k)}"
+                      for k in ("n_layers", "n_encoder_layers")
+                      if getattr(cfg, k) != getattr(full, k)] or None
     want = {n: c * run.steps for n, c in train_launches(
         cfg, run.opts, math.prod(run.batch), cuda).items()}
     groups = {}
@@ -3451,6 +3549,471 @@ def phase_train(run: TrainRun, device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the kernels in bf16
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def one_rounding(got, plain) -> tuple:
+    """(max |got - plain|, whether every element of ``got`` is within one
+    bf16 rounding of the plain version's fp32 result ``plain``: |Δ| ≤
+    2⁻⁸·|plain| + 1e-4·max|plain|, the 1e-4 for fp32 sums in another
+    order; an fp32 ``got`` is rounded to no bf16, so its bar is the 1e-4
+    alone)."""
+    d = (got.double() - plain.double()).abs()
+    p = plain.double().abs()
+    ulp = 2.0 ** -8 if got.dtype == BF16 else 0.0
+    return float(d.max()), bool((d <= ulp * p
+                                 + 1e-4 * float(p.max())).all())
+
+
+def _bf16_timed(rec, timer, kern, plain, library, cuda=True) -> dict:
+    """3h's times: as phase 3's, ``graph_ms`` on the card only."""
+    rec.update(time_in_turns(timer, kern, plain, library))
+    if cuda:
+        rec["graph_ms"] = graph_timer(kern)
+    return rec
+
+
+def _bf16_gate(tag, rec, ok) -> None:
+    if not ok:
+        _emit(tag, rec)
+        raise AssertionError(f"{rec['step']}: the bf16 kernel disagrees "
+                             f"with its plain version")
+
+
+def check_bf16_attention(kind, batched, timer, device) -> dict:
+    """B1 (a ragged step) or B3 (a batched one) on bf16 q and pools, pages
+    of 128, against the plain version's fp32 math on the same bf16 values;
+    poison (NaN) in every slot no row may read leaves the output bitwise
+    equal; a repeat bitwise equal. Library: SDPA in bf16."""
+    st = (make_bstep if batched else make_step)(kind, 128, device)
+    q, kp, vp, *meta = st.args
+    q, kp, vp = (t.to(BF16) for t in (q, kp, vp))
+    st = dataclasses.replace(st, args=(q, kp, vp, *meta))
+    fn, ref = ((paged_attention, paged_attention_ref) if batched else
+               (paged_attention_ragged, paged_attention_ragged_ref))
+    kern = lambda: fn(q, kp, vp, *meta, window=st.window)
+    plain = lambda: ref(q.float(), kp, vp, *meta, window=st.window)
+    got, want = kern(), plain()
+    err, ok = one_rounding(got, want)
+    same = None          # the kernel's property: the plain version
+    if q.is_cuda:        # multiplies masked NaN by 0
+        kp2, vp2 = poisoned(st)
+        same = torch.equal(fn(q, kp2, vp2, *meta, window=st.window), got)
+        del kp2, vp2
+    lib_fn, lib_check = (blibrary_call if batched else library_call)(st)
+    rec = {"step": f"{kind}_bf16", "kernel": fn.__name__, "page": 128,
+           "max_abs_err": err, "one_rounding": ok, "poison_ok": same,
+           "repeat_bitwise": torch.equal(kern(), got),
+           "library_max_abs_err": lib_check(lib_fn(), want),
+           **(bstep_bound(st, 2, BF16_FLOPS_PER_S) if batched else
+              step_bound(st, 2, 0, 2, BF16_FLOPS_PER_S))}
+    _bf16_gate("bf16_kernel_step", rec,
+               ok and same is not False and rec["repeat_bitwise"])
+    return _bf16_timed(rec, timer, kern, plain, lib_fn, q.is_cuda)
+
+
+def check_bf16_quant(kind, timer, device) -> dict:
+    """B2 on step ``kind`` (pages of 128) with int8 pools and a bf16 q, the
+    output bf16, against the plain version's fp32 math; poison and a
+    repeat as 3c. Library: SDPA in bf16 over the dequantized pools."""
+    st = make_step(kind, 128, device)
+    args, (kd, vd), _ = quantize_step(st, "int8")
+    q = args[0].to(BF16)
+    args = (q, *args[1:])
+    kern = lambda: paged_attention_ragged_quant(*args, window=st.window)
+    plain = lambda: paged_attention_ragged_quant_ref(q.float(), *args[1:],
+                                                     window=st.window)
+    got, want = kern(), plain()
+    err, ok = one_rounding(got, want)
+    same = None if not q.is_cuda else torch.equal(
+        paged_attention_ragged_quant(q, *poisoned_quant(st, args),
+                                     *args[5:], window=st.window), got)
+    lib_fn, lib_check = library_call(dataclasses.replace(
+        st, args=(q, kd, vd, *st.args[3:])))
+    rec = {"step": f"{kind}_int8_bf16q", "kernel": "paged_attention_ragged_"
+           "quant", "page": 128, "max_abs_err": err, "one_rounding": ok,
+           "poison_ok": same, "repeat_bitwise": torch.equal(kern(), got),
+           "library_max_abs_err": lib_check(lib_fn(), want),
+           **step_bound(st, 1, 4, 2, BF16_FLOPS_PER_S)}
+    _bf16_gate("bf16_kernel_step", rec,
+               ok and same is not False and rec["repeat_bitwise"])
+    return _bf16_timed(rec, timer, kern, plain, lib_fn, q.is_cuda)
+
+
+def check_bf16_gmm(c, timer, device, backward=False) -> dict:
+    """B4 at mixtral-8x7b's gate/up shape (E 8, K 4096, N 14336) at
+    capacity ``c`` in bf16 (x, w ~ N(0, 0.3²) rounded), against the plain
+    version's fp32 math and fp64 on the first expert's first rows, a
+    repeat bitwise; with ``backward`` its backward pair (dx = dy · wᵀ, dw =
+    xᵀ · dy, dy bf16 likewise) instead. Library: ``torch.bmm`` in bf16."""
+    mix = get("mixtral-8x7b")
+    e, k, n = mix.moe.n_experts, mix.d_model, mix.moe.d_ff_expert
+    g = torch.Generator(device=device).manual_seed(300 + c)
+    rnd = lambda *shp: torch.randn(shp, generator=g, device=device).mul_(
+        0.3).to(BF16)
+    x, w = rnd(e, c, k), rnd(e, k, n)
+    rows = min(c, 8)
+    if backward:
+        dy = rnd(e, c, n)
+        wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+        kern = lambda: moe_gmm_backward(x, w, dy)
+        plain = lambda: (moe_gmm_ref(dy.float(), wt.float()),
+                         moe_gmm_ref(xt.float(), dy.float()))
+        library = lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy))
+        exact = (dy[0, :rows].double() @ w[0].double().T,
+                 x[0, :, :rows].double().T @ dy[0].double())
+        bound = gmm_backward_bound(e, c, k, n, 2, BF16_FLOPS_PER_S)
+    else:
+        kern = lambda: (moe_gmm(x, w),)
+        plain = lambda: (moe_gmm_ref(x.float(), w.float()),)
+        library = lambda: torch.bmm(x, w)
+        exact = (x[0, :rows].double() @ w[0].double(),)
+        bound = gmm_bound(e, c, k, n, 2, BF16_FLOPS_PER_S)
+    got, want, again = kern(), plain(), kern()
+    errs = [one_rounding(a, b) for a, b in zip(got, want)]
+    rec = {"step": f"c{c}_gate_up_bf16" + ("_backward" if backward else ""),
+           "kernel": "moe_gmm", "E": e, "C": c, "K": k, "N": n,
+           "max_abs_err": max(v for v, _ in errs),
+           "one_rounding": all(o for _, o in errs),
+           "fp64_max_abs_err": max(float((a[0, :rows].double() - x64)
+                                         .abs().max())
+                                   for a, x64 in zip(got, exact)),
+           "repeat_bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(got, again)), **bound}
+    del got, want, again, exact
+    _bf16_gate("bf16_moe_kernel_step", rec,
+               rec["one_rounding"] and rec["repeat_bitwise"])
+    rec = _bf16_timed(rec, timer, kern, plain, library, x.is_cuda)
+    if x.is_cuda:
+        rec["library_graph_ms"] = graph_timer(library)
+    return rec
+
+
+def check_bf16_scan(arch, batch, prompt, timer, device, backward=False,
+                    contract=False) -> dict:
+    """B5 at ``arch``'s heads and the scan shape of ``batch`` prompts of
+    ``prompt`` tokens, at the dtypes ``models/mamba2.py`` gives it under
+    bf16 compute: fp32 xdt and a_dt, bf16 b and c (3e's distributions,
+    b and c rounded), a zero start, y in fp32; with ``contract`` the
+    Pallas kernel's instead (all four bf16, y bf16). y against the plain
+    version's fp32 math on the same values (one rounding), the state
+    (fp32) within 1e-4·max(1, max|plain|), fp64 on the first sequence's
+    first two heads (the backward: on the first sequence), a repeat
+    bitwise. With ``backward`` B5's backward at the model's dtypes
+    instead, from a forward launch that wrote y in fp32 (what it reads),
+    dy ~ N(0, 1) fp32: the four gradients, each in its input's dtype,
+    each one rounding from the plain fp32 backward. No library call."""
+    shape = scan_shape(get(arch), batch, prompt)
+    b, nc, l, h, p, n = shape
+    g = torch.Generator(device=device).manual_seed(400 + int(backward))
+    rnd = lambda *shp: torch.randn(shp, generator=g, device=device)
+    x, a = rnd(b, nc, l, h, p).mul_(0.3), rnd(b, nc, l, h).abs_().mul_(-0.1)
+    bm, cm = rnd(b, nc, l, n).mul_(0.3), rnd(b, nc, l, n).mul_(0.3)
+    xt = BF16 if contract else torch.float32
+    ins = [x.to(xt), a.to(xt), bm.to(BF16), cm.to(BF16)]
+    x_elem = 2 if contract else 4
+    cuda = ins[0].is_cuda
+    del x, a, bm, cm
+    f32 = [t.float() for t in ins]
+    if backward:
+        dy = rnd(b, nc, l, h, p)
+        saved = (mamba2_scan._launch(*ins, None, torch.float32)[::2]
+                 if cuda else None)
+        kern = lambda: mamba_chunk_scan_backward(*ins, None, dy, None, saved,
+                                                 SCAN_NEEDS)[:4]
+        plain = lambda: mamba_chunk_scan_backward_ref(*f32, None, dy,
+                                                      None)[:4]
+        exact = mamba_chunk_scan_backward_ref(
+            *(t[:1].double() for t in f32), None, dy[:1].double(), None)[:4]
+        cut = lambda t: t[:1]
+        bound = scan_backward_bound(b, nc, l, h, p, n, 2)
+    else:
+        y_dtype = None if contract else torch.float32
+        kern = lambda: mamba_chunk_scan(*ins, None, y_dtype)
+        plain = lambda: mamba_chunk_scan_ref(*f32)
+        exact = mamba_chunk_scan_ref(
+            f32[0][:1, :, :, :2].double(), f32[1][:1, :, :, :2].double(),
+            f32[2][:1].double(), f32[3][:1].double())
+        cut = lambda t: t[:1, :, :, :2] if t.dim() == 5 else t[:1, :2]
+        bound = scan_bound(b, nc, l, h, p, n, nc - 1, x_elem, 2)
+    got, want, again = kern(), plain(), kern()
+    if backward:
+        errs = [one_rounding(u, v) for u, v in zip(got, want)]
+        state_ok = True
+    else:
+        errs = [one_rounding(got[0], want[0])]
+        tol = ATOL_KERNEL * max(1.0, float(want[1].abs().max()))
+        state_ok = float((got[1] - want[1]).abs().max()) <= tol
+    rec = {"step": f"{arch}_b{batch}_s{prompt}_"
+           + ("bf16" if contract else "bf16bc")
+           + ("_backward" if backward else ""),
+           "kernel": "mamba2_scan" + ("_backward" if backward else ""),
+           "dtypes": ("xdt, a_dt, b, c and y bf16" if contract else
+                      "xdt, a_dt fp32; b, c bf16; y fp32"),
+           "B": b, "NC": nc, "L": l, "H": h, "P": p, "N": n,
+           "max_abs_err": max(v for v, _ in errs),
+           "one_rounding": all(o for _, o in errs), "state_ok": state_ok,
+           "fp64_max_abs_err": max(float((cut(u).double() - e64).abs().max())
+                                   for u, e64 in zip(got, exact)),
+           "repeat_bitwise": all(torch.equal(u, v)
+                                 for u, v in zip(got, again)), **bound}
+    del got, want, again, exact
+    _bf16_gate("bf16_ssm_kernel_step", rec, rec["one_rounding"] and state_ok
+               and rec["repeat_bitwise"])
+    return _bf16_timed(rec, timer, kern, plain, None, cuda)
+
+
+def phase_bf16_kernels(device, timer) -> dict:
+    """Phase 3h: every kernel in bf16 at the main path's shapes (pages of
+    128): B1 at steps (a) and (b), B2 at (a) with int8 pools, B3 at (d)
+    and (f), B4 at mixtral's gate/up at C = 8 and 960 and its backward pair
+    at C = 640, B5 at 3e (l) and (h) and its backward at (l) at the
+    model's dtypes (what 4m, 5k and 6f launch), then B5 at (l) at the
+    Pallas kernel's (all bf16). Returns the records by kernel."""
+    cuda = torch.device(device).type == "cuda"
+    steps = {
+        "paged_attention_ragged": [
+            lambda: check_bf16_attention("a_mixed", False, timer, device),
+            lambda: check_bf16_attention("b_decode", False, timer, device)],
+        "paged_attention_ragged_quant": [
+            lambda: check_bf16_quant("a_mixed", timer, device)],
+        "paged_attention": [
+            lambda: check_bf16_attention("d_decode", True, timer, device),
+            lambda: check_bf16_attention("f_chunk", True, timer, device)],
+        "moe_gmm": [lambda: check_bf16_gmm(8, timer, device),
+                    lambda: check_bf16_gmm(960, timer, device),
+                    lambda: check_bf16_gmm(640, timer, device, True)],
+        "mamba2_scan": [
+            lambda: check_bf16_scan("mamba2-1.3b", 8, 2048, timer, device),
+            lambda: check_bf16_scan("zamba2-2.7b", 8, 2048, timer, device),
+            lambda: check_bf16_scan("mamba2-1.3b", 8, 2048, timer, device,
+                                    contract=True)],
+        "mamba2_scan_backward": [
+            lambda: check_bf16_scan("mamba2-1.3b", 8, 2048, timer, device,
+                                    True)]}
+    recs = {}
+    for name, fns in steps.items():
+        recs[name] = []
+        for fn in fns:
+            recs[name].append(fn())
+            _emit("bf16_kernel_step", recs[name][-1])
+            if cuda:
+                _release_memory()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: bf16 models, card against CPU, at reduced depth
+# ---------------------------------------------------------------------------
+
+# the JAX launch cells' opts (src/repro/launch/steps.py::_model_opts)
+SERVE_BF16 = ModelOpts(param_dtype=BF16, compute_dtype=BF16,
+                       cache_dtype=BF16, attn_impl="flash",
+                       moe_impl="capacity", remat=False)
+TRAIN_BF16 = ModelOpts(param_dtype=torch.float32, compute_dtype=BF16,
+                       cache_dtype=BF16, attn_impl="flash",
+                       moe_impl="capacity", remat=True, ce_chunk=2048)
+# (arch, layers, prompt or training tokens) of phase 4m: 4j's and 4l's
+BF16_PARITY = (("h2o-danube-1.8b", 2, 256), ("mixtral-8x7b", 1, 128),
+               ("mamba2-1.3b", 2, 256), ("zamba2-2.7b", 7, 256))
+BF16_BAR = 2e-2
+
+
+def forced(cfg, params, device, prompts, steps, opts, tokens=None):
+    """``DecoderLM`` prefill and ``steps`` decode steps, each fed
+    ``tokens[:, i]`` (None: its own greedy token). Returns (logits of the
+    prefill and of each step, on the host; the tokens fed; each kernel's
+    launches in the prefill and in the decode steps). Every count is set
+    to 0 just before and read just after; launches on the card add to
+    ``SERVING_LAUNCHES``."""
+    model = DecoderLM(cfg, opts, device=device)
+    x = torch.as_tensor(prompts, device=model.device)
+    for k in KERNELS.values():
+        k.launches = 0
+    logits, cache = model.prefill(params, x, prompts.shape[1] + steps)
+    pre = {name: k.launches for name, k in KERNELS.items()}
+    for k in KERNELS.values():
+        k.launches = 0
+    out, fed = [logits.float().cpu()], []
+    for i in range(steps):
+        tok = (logits.argmax(-1) if tokens is None
+               else torch.as_tensor(tokens[:, i], device=model.device))
+        fed.append(tok.cpu())
+        logits, cache = model.decode_step(params, tok, cache)
+        out.append(logits.float().cpu())
+    dec = {name: k.launches for name, k in KERNELS.items()}
+    if model.device.type == "cuda":
+        for name in KERNELS:
+            SERVING_LAUNCHES[name] += pre[name] + dec[name]
+    return out, torch.stack(fed, 1).numpy(), pre, dec
+
+
+def _bf16_leaves_ok(got, want, exact) -> tuple:
+    """(worst per-leaf |got - want| over the leaf's max |exact|, its bar,
+    leaves ``want`` moves and ``got`` does not): ``got`` the card's bf16
+    gradients, ``want`` and ``exact`` the CPU's plain path at bf16 and at
+    fp32 compute. The bar of a leaf is 2e-2 plus 1.5 times that leaf's
+    bf16 noise in the reference alone, |want - exact| over the same max
+    (bf16 gradients are a few % from fp32 ones; the card's should be no
+    further from the CPU's), so nothing the card computes sets its own
+    bar."""
+    worst, worst_bar, lost, ok = 0.0, 0.0, 0, True
+    for a, b, r in zip(leaves(got), leaves(want), leaves(exact)):
+        a = a.cpu()
+        scale = float(r.abs().max())
+        if float(b.abs().max()) > 0 and float(a.abs().max()) == 0:
+            lost += 1
+        if scale == 0:
+            continue
+        err = float((a - b).abs().max()) / scale
+        bar = BF16_BAR + 1.5 * float((b - r).abs().max()) / scale
+        ok &= err <= bar
+        if err > worst:
+            worst, worst_bar = err, bar
+    return worst, worst_bar, lost, ok
+
+
+def phase_bf16_parity(device, cases=BF16_PARITY, steps=4, seed=1,
+                      train=True) -> list:
+    """Phase 4m: each case's config at full width, its depth cut, the
+    port's own weights (``seed``). Serving at the launch serving opts (bf16
+    weights, compute and cache): prefill of 2 prompts and ``steps`` decode
+    steps on the CPU (greedy) and on the card (fed the CPU's tokens).
+    Gates: logits within 2e-2·max|logit| of the CPU's at every step, the
+    card's greedy token the CPU's wherever the CPU's top-2 margin is
+    larger than that; B5 once per Mamba2 block in the prefill, never in
+    decode, B4 in both on the MoE model, no other kernel. Training at the
+    launch training opts (fp32 weights, bf16 compute; skipped without
+    ``train``): ``train_loss`` and its gradients on both, the CPU's also
+    at fp32 compute for each leaf's bf16 noise: loss within 1e-3
+    relative, every leaf within 2e-2 + 1.5 × that noise of its fp32 max
+    (``_bf16_leaves_ok``), none lost, B4 and B5 launched as
+    ``train_launches`` says."""
+    recs = []
+    cuda = torch.device(device).type == "cuda"
+    for arch, layers, tokens in cases:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        params = init_params(cfg, torch.Generator(
+            device=device).manual_seed(seed), device, BF16)
+        prompts = _prompts(cfg, 2, tokens, seed=6)
+        cl, toks, _, _ = forced(cfg, params_to(params, "cpu"), "cpu",
+                                prompts, steps, SERVE_BF16)
+        dl, _, pre, dec = forced(cfg, params, device, prompts, steps,
+                                 SERVE_BF16, toks)
+        del params
+        err, tok_ok = 0.0, True
+        for a, b in zip(dl, cl):
+            bar = BF16_BAR * float(b.abs().max())
+            err = max(err, float((a - b).abs().max()) / bar * BF16_BAR)
+            top2 = b.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > bar
+            tok_ok &= bool(torch.equal(a.argmax(-1)[clear],
+                                       b.argmax(-1)[clear]))
+        mamba = cfg.n_layers if cfg.ssm is not None and cuda else 0
+        gmm = cfg.moe is not None and cuda
+        launches_ok = (pre["mamba2_scan"] == mamba
+                       and dec["mamba2_scan"] == 0
+                       and (pre["moe_gmm"] > 0) == gmm
+                       and (dec["moe_gmm"] > 0) == gmm
+                       and all(pre[n] == dec[n] == 0 for n in KERNELS
+                               if n not in ("mamba2_scan", "moe_gmm")))
+        rec = {"phase": "4m", "model": cfg.name, "layers": layers,
+               "tokens": tokens, "decode_steps": steps, "seed": seed,
+               "reduced": [f"n_layers {get(arch).n_layers} -> {layers}"],
+               "serve_opts": "bf16 params, compute and cache",
+               "logits_max_rel_err": err, "tokens_ok": tok_ok,
+               "prefill_launches": pre, "decode_launches": dec}
+        train_ok = True
+        if train:       # at the launch training opts
+            params = init_params(cfg, torch.Generator(
+                device=device).manual_seed(seed), device)
+            host = params_to(params, "cpu")
+            toks = np.random.default_rng(7).integers(0, cfg.vocab,
+                                                     (1, tokens))
+            bd = {"tokens": torch.as_tensor(toks, device=device)}
+            bc = {"tokens": torch.as_tensor(toks)}
+            ld, gd, tl = counted_grads(
+                DecoderLM(cfg, TRAIN_BF16, device=device), params, bd)
+            del params
+            lc, gc_, _ = counted_grads(
+                DecoderLM(cfg, TRAIN_BF16, device="cpu"), host, bc)
+            f32 = dataclasses.replace(TRAIN_BF16, compute_dtype=torch.float32,
+                                      cache_dtype=torch.float32)
+            _, g32, _ = counted_grads(DecoderLM(cfg, f32, device="cpu"),
+                                      host, bc)
+            worst, worst_bar, lost, grads_ok = _bf16_leaves_ok(gd, gc_, g32)
+            del host, gd, g32, gc_
+            rec.update({"train_opts": "fp32 params, bf16 compute and cache",
+                        "loss": ld, "cpu_loss": lc,
+                        "loss_rel_err": abs(ld - lc) / abs(lc),
+                        "grad_worst_rel_err": worst,
+                        "grad_worst_bar": worst_bar, "grads_lost": lost,
+                        "train_launches": tl})
+            train_ok = (rec["loss_rel_err"] <= 1e-3 and grads_ok
+                        and lost == 0
+                        and tl == train_launches(cfg, TRAIN_BF16, tokens,
+                                                 cuda))
+        rec["seconds"] = time.perf_counter() - t0
+        _emit("bf16_parity", rec)
+        if not (err <= BF16_BAR and tok_ok and launches_ok and train_ok):
+            raise AssertionError(f"{cfg.name}: bf16 on the card and on the "
+                                 f"CPU disagree, or the launches are wrong")
+        recs.append(rec)
+        if cuda:
+            _release_memory()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: bf16 serving through DecoderLM at full width
+# ---------------------------------------------------------------------------
+
+BF16_MOE_LAYERS = 16             # of mixtral-8x7b's 32: 46.4 GB of bf16
+BF16_MOE_SERVE = ((4, 2048, 32),)
+
+
+def phase_bf16_serve(device) -> list:
+    """Phase 5k at the launch serving opts: (i) mixtral-8x7b at every
+    published width, 16 of its 32 layers (the memory 5d's 8 fp32 layers
+    take), 4 prompts of 2048 then 32 decode steps; (ii) mamba2-1.3b at
+    full depth on 5e (i)'s workload (8 × 2048, then 64 steps). 5e's gates
+    and numbers (``phase_decoder_serve``), with B4's and B5's share of one
+    more prefill's device ms."""
+    mix = dataclasses.replace(get("mixtral-8x7b"), n_layers=BF16_MOE_LAYERS)
+    recs = phase_decoder_serve(mix, device, BF16_MOE_SERVE, SERVE_BF16,
+                               tag="5k")
+    _release_memory()
+    recs += phase_decoder_serve(get("mamba2-1.3b"), device, SSM_SERVE[:1],
+                                SERVE_BF16, tag="5k")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: training at the launch training opts (fp32 weights, bf16 compute)
+# ---------------------------------------------------------------------------
+
+def bf16_train_runs() -> list:
+    """6f (i) h2o-danube-1.8b at full depth on 6a's batch (4 × 1024, AdamW,
+    5 steps) and (ii) mamba2-1.3b at full depth on 6d's (4 × 2048): B5 in
+    bf16 forward and backward; a repeated pass instead of a checkpoint."""
+    return [TrainRun("6f_i", get("h2o-danube-1.8b"), TRAIN_BF16,
+                     OptConfig(name="adamw"), (4, 1024), 5, None),
+            TrainRun("6f_ii", get("mamba2-1.3b"), TRAIN_BF16,
+                     OptConfig(name="adamw"), (4, 2048), 5, None)]
+
+
+def bf16_fields(rec: dict, prefix: str = "bf16_") -> dict:
+    """A 3h record's times, bound and error, keyed with ``prefix``."""
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")
+    return {prefix + k: rec.get(k) for k in keys}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3483,6 +4046,8 @@ def main() -> int:
     hrecs = phase_ssm_kernels("cuda", cuda_timer, cfg=get("zamba2-2.7b"),
                               steps=HYBRID_SSM_STEPS)
     grecs = phase_ssm_backward("cuda", cuda_timer)
+    _release_memory()
+    b16 = phase_bf16_kernels("cuda", cuda_timer)
     small = dataclasses.replace(get("h2o-danube-1.8b"), n_layers=2)
     _, fused_tokens = phase_parity(small, "cuda")
     phase_path_parity(small, "cuda", fused_tokens)
@@ -3502,6 +4067,18 @@ def main() -> int:
     _release_memory()
     phase_encdec_parity("cuda")
     _release_memory()
+    # the bf16 main paths (4m, 5k, 6f): their launches, summed
+    bf16_launches = {name: 0 for name in KERNELS}
+
+    def bf16_path(fn, *args):
+        before = dict(SERVING_LAUNCHES)
+        out = fn(*args)
+        for name in KERNELS:
+            bf16_launches[name] += SERVING_LAUNCHES[name] - before[name]
+        _release_memory()
+        return out
+
+    bf16_path(phase_bf16_parity, "cuda")
     phase_cache_parity(small, "cuda")
     phase_migration_parity(small, "cuda")
     cfg = get("h2o-danube-1.8b")
@@ -3534,9 +4111,14 @@ def main() -> int:
     phase_decoder_serve(get("gemma3-1b"), "cuda")
     _release_memory()
     phase_encdec_serve("cuda")
+    _release_memory()
+    bf16_path(phase_bf16_serve, "cuda")
     for run in train_runs():
         _release_memory()
         phase_train(run, "cuda")
+    for run in bf16_train_runs():
+        _release_memory()
+        bf16_path(phase_train, run, "cuda")
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     dec_rec = recs[2]             # step (b), pages of 128
@@ -3554,6 +4136,8 @@ def main() -> int:
     bwd_mrec = next(r for r in brecs_b4           # step (u), gate/up
                     if r["step"] == "u_c960_gate_up")
     main_grec, long_grec, hyb_grec = grecs   # 3g (l), (m), (h)
+    b16_b1, b16_b3 = b16["paged_attention_ragged"], b16["paged_attention"]
+    b16_b4, b16_b5 = b16["moe_gmm"], b16["mamba2_scan"]
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
@@ -3565,7 +4149,9 @@ def main() -> int:
         "library_ms": main_rec["library_ms"],
         "graph_ms": main_rec["graph_ms"], "decode_ms": dec_rec["ms"],
         "decode_graph_ms": dec_rec["graph_ms"],
-        "decode_bound_ms": dec_rec["bound_ms"]}, {
+        "decode_bound_ms": dec_rec["bound_ms"],
+        **bf16_fields(b16_b1[0]), **bf16_fields(b16_b1[1], "bf16_decode_"),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in b16_b1)}, {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:382",
@@ -3577,7 +4163,9 @@ def main() -> int:
         "graph_ms": main_brec["graph_ms"], "chunk_ms": chunk_brec["ms"],
         "chunk_graph_ms": chunk_brec["graph_ms"],
         "chunk_library_ms": chunk_brec["library_ms"],
-        "chunk_bound_ms": chunk_brec["bound_ms"]}, {
+        "chunk_bound_ms": chunk_brec["bound_ms"],
+        **bf16_fields(b16_b3[0]), **bf16_fields(b16_b3[1], "bf16_chunk_"),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in b16_b3)}, {
         "name": "paged_attention_ragged_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/"
                   "paged_attention_ragged_quant.cu",
@@ -3590,7 +4178,8 @@ def main() -> int:
         "graph_ms": main_qrec["graph_ms"], "b1_ms": main_qrec["b1_ms"],
         "decode_ms": dec_qrec["ms"], "decode_graph_ms": dec_qrec["graph_ms"],
         "decode_b1_ms": dec_qrec["b1_ms"],
-        "decode_bound_ms": dec_qrec["bound_ms"]}, {
+        "decode_bound_ms": dec_qrec["bound_ms"],
+        **bf16_fields(b16["paged_attention_ragged_quant"][0])}, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:38",
@@ -3610,7 +4199,13 @@ def main() -> int:
         "backward_graph_ms": bwd_mrec["graph_ms"],
         "backward_bound_ms": bwd_mrec["bound_ms"],
         "backward_library_ms": bwd_mrec["library_ms"],
-        "backward_library_graph_ms": bwd_mrec["library_graph_ms"]}, {
+        "backward_library_graph_ms": bwd_mrec["library_graph_ms"],
+        "bf16_launches": bf16_launches["moe_gmm"],
+        **bf16_fields(b16_b4[0]), **bf16_fields(b16_b4[1], "bf16_prefill_"),
+        **bf16_fields(b16_b4[2], "bf16_backward_"),
+        "bf16_library_graph_ms": b16_b4[0]["library_graph_ms"],
+        "bf16_prefill_library_graph_ms": b16_b4[1]["library_graph_ms"],
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in b16_b4)}, {
         "name": "mamba2_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan.py:64",
@@ -3626,7 +4221,12 @@ def main() -> int:
         "hybrid_ms": hyb_srec["ms"], "hybrid_plain_ms": hyb_srec["plain_ms"],
         "hybrid_graph_ms": hyb_srec["graph_ms"],
         "hybrid_bound_ms": hyb_srec["bound_ms"],
-        "hybrid_bound_by": hyb_srec["bound_by"]}, {
+        "hybrid_bound_by": hyb_srec["bound_by"],
+        "bf16_launches": bf16_launches["mamba2_scan"],
+        "bf16_dtypes": b16_b5[0]["dtypes"],
+        **bf16_fields(b16_b5[0]), **bf16_fields(b16_b5[1], "bf16_hybrid_"),
+        **bf16_fields(b16_b5[2], "bf16_contract_"),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in b16_b5[:2])}, {
         "name": "mamba2_scan_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
         "replaces": "src/repro/models/mamba2.py:75",
@@ -3645,9 +4245,15 @@ def main() -> int:
         "long_bound_ms": long_grec["bound_ms"],
         "hybrid_ms": hyb_grec["ms"], "hybrid_plain_ms": hyb_grec["plain_ms"],
         "hybrid_graph_ms": hyb_grec["graph_ms"],
-        "hybrid_bound_ms": hyb_grec["bound_ms"]}]
+        "hybrid_bound_ms": hyb_grec["bound_ms"],
+        "bf16_launches": bf16_launches["mamba2_scan_backward"],
+        "bf16_dtypes": b16["mamba2_scan_backward"][0]["dtypes"],
+        **bf16_fields(b16["mamba2_scan_backward"][0])}]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError("a kernel of the serving paths never launched")
+    if not all(k["bf16_launches"] > 0 for k in kernels
+               if "bf16_launches" in k):
+        raise AssertionError("a kernel of the bf16 paths never launched")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

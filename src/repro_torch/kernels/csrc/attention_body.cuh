@@ -1,9 +1,21 @@
 // The attention body of kernels B1 (paged_attention_ragged.cu), B2
 // (paged_attention_ragged_quant.cu) and B3 (paged_attention.cu): paged
-// attention over K/V pools of T = float, int8_t or __nv_fp8_e4m3 values
-// (the 1-byte types with f32 row scales), in one of two layouts, with the
-// copy width CH (16 bytes for fp32 pools and for 1-byte rows of D % 16 ==
-// 0 on 16-byte aligned pools, else 4).
+// attention over K/V pools of T = float, __nv_bfloat16, int8_t or
+// __nv_fp8_e4m3 values (the 1-byte types with f32 row scales), for q and
+// an output of QT = float or __nv_bfloat16, in one of two layouts, with
+// the copy width CH (16 bytes for fp32 and bf16 pools and for 1-byte rows
+// of D % 16 == 0 on 16-byte aligned pools, else 4).
+//
+// bf16, as the Pallas kernels take it (paged_attention.py, which casts
+// every block to fp32 and writes the output in q's dtype): q and the pools
+// are widened to fp32 exactly (a bf16 is the top half of its fp32: a shift
+// or a mask, no conversion unit), every score, softmax sum, accumulator
+// and split partial is fp32, and the output is rounded once to nearest
+// even (__float2bfloat16_rn, as astype). bf16 pools take the route of the
+// 1-byte pools (32-key decode sub-tiles, 64-key chunk tiles widened once
+// into fp32 shared memory) without scales; unlike widened bytes, bf16
+// bytes a stage never copied may be NaN, so they are masked by selects as
+// fp32 rows are.
 //
 // Layouts (a template parameter: Ragged or Batched, below).
 // * Ragged (B1, B2; ref.py::paged_attention_ragged_ref and
@@ -76,6 +88,7 @@
 // equal.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
@@ -90,14 +103,19 @@ constexpr int kChunkVecs = 64;  // query vectors of a chunk tile
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+using bf16 = __nv_bfloat16;
+// values narrower than fp32, widened after the copy: 1-byte or bf16
 template <typename T>
-constexpr bool kQuant = !std::is_same<T, float>::value;
+constexpr bool kWide = !std::is_same<T, float>::value;
+// 1-byte values, with f32 row scales (B2)
+template <typename T>
+constexpr bool kScaled = sizeof(T) == 1;
 // keys of a warp's decode sub-tile
 template <typename T>
-constexpr int kSubKeys = kQuant<T> ? 32 : 16;
+constexpr int kSubKeys = kWide<T> ? 32 : 16;
 // keys of a chunk tile's key tile: 8 threads of a row hold kChunkKeys / 8
 template <typename T>
-constexpr int kChunkKeys = kQuant<T> ? 64 : 32;
+constexpr int kChunkKeys = kWide<T> ? 64 : 32;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -140,13 +158,88 @@ __device__ __forceinline__ float4 widen4(uint32_t g, __nv_fp8_e4m3) {
                      e4m3_byte(g, 0x2444), e4m3_byte(g, 0x3444));
 }
 
+// bf16 values widened to fp32 exactly: the low and the high value of a
+// 4-byte pair, and 4 values from 8 bytes
+__device__ __forceinline__ float bf_lo(uint32_t g) {
+  return __uint_as_float(g << 16);
+}
+
+__device__ __forceinline__ float bf_hi(uint32_t g) {
+  return __uint_as_float(g & 0xffff0000u);
+}
+
+__device__ __forceinline__ float4 widen4(uint2 g) {
+  return make_float4(bf_lo(g.x), bf_hi(g.x), bf_lo(g.y), bf_hi(g.y));
+}
+
 // Values 4c..4c+3 of a K or V row in shared memory, as fp32.
 template <typename T>
 __device__ __forceinline__ float4 load4(const uint8_t* row, int c) {
-  if constexpr (kQuant<T>)
+  if constexpr (std::is_same<T, bf16>::value)
+    return widen4(*reinterpret_cast<const uint2*>(row + 8 * c));
+  else if constexpr (kScaled<T>)
     return widen4(*reinterpret_cast<const uint32_t*>(row + 4 * c), T{});
   else
     return reinterpret_cast<const float4*>(row)[c];
+}
+
+// The CH / sizeof(T) values of one CH-byte copy of a K row in shared
+// memory (1-byte or bf16 values), as fp32.
+template <typename T, int CH>
+__device__ __forceinline__ void widen_chunk(const uint8_t* p, float* kf) {
+  constexpr int kWords = CH / 4;
+  uint32_t w[kWords];
+  if constexpr (CH == 16) {
+    const uint4 g = *reinterpret_cast<const uint4*>(p);
+    w[0] = g.x;
+    w[1] = g.y;
+    w[2] = g.z;
+    w[3] = g.w;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) {
+    if constexpr (kScaled<T>) {
+      const float4 f = widen4(w[u], T{});
+      kf[4 * u] = f.x;
+      kf[4 * u + 1] = f.y;
+      kf[4 * u + 2] = f.z;
+      kf[4 * u + 3] = f.w;
+    } else {
+      kf[2 * u] = bf_lo(w[u]);
+      kf[2 * u + 1] = bf_hi(w[u]);
+    }
+  }
+}
+
+// 4 consecutive values of q (fp32 or bf16) as fp32
+__device__ __forceinline__ float4 q4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 q4(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+
+// 4 consecutive output values, and one, in the output's type: bf16 rounded
+// once to nearest even, as astype rounds
+__device__ __forceinline__ void put4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void put4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ void put1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void put1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 template <int CH>
@@ -181,7 +274,7 @@ __host__ __device__ constexpr int row_stride(int row_bytes, int CH) {
 // and nk V scales.
 template <typename T>
 __host__ __device__ constexpr int stage_bytes(int nk, int rs) {
-  return nk * (2 * rs + (kQuant<T> ? 8 : 0));
+  return nk * (2 * rs + (kScaled<T> ? 8 : 0));
 }
 
 struct Raw {
@@ -194,8 +287,8 @@ struct Raw {
 template <typename T>
 __device__ __forceinline__ Raw raw_at(uint8_t* base, int nk, int rs) {
   float* scales = reinterpret_cast<float*>(base + 2 * nk * rs);
-  return {base, base + nk * rs, kQuant<T> ? scales : nullptr,
-          kQuant<T> ? scales + nk : nullptr};
+  return {base, base + nk * rs, kScaled<T> ? scales : nullptr,
+          kScaled<T> ? scales + nk : nullptr};
 }
 
 // What a block's sequence s and KV head hk see: pools, tables, geometry.
@@ -223,7 +316,7 @@ __device__ __forceinline__ void load_keys(const Raw& r, int rs, int k0,
     const int kv = k0 + lane, pg = kv / p.page, slot = kv % p.page;
     row = (((unsigned long long)p.table[pg] * p.page + slot) * p.Hkv +
            p.hk) * p.D * sizeof(T);
-    if constexpr (kQuant<T>) {
+    if constexpr (kScaled<T>) {
       const size_t srow =
           ((size_t)p.stable[pg] * p.page + slot) * p.Hkv + p.hk;
       cp_async<4>(r.ks + j0 + lane, p.ks + srow);
@@ -362,9 +455,9 @@ __host__ __device__ constexpr int decode_smem(int D, int CH, int NV) {
                             row_stride(D * static_cast<int>(sizeof(T)), CH));
 }
 
-template <typename T, int CH, int NV, typename Lay>
+template <typename T, int CH, int NV, typename Lay, typename QT>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
+decode_split_kernel(const QT* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const float* __restrict__ ksp,
                     const float* __restrict__ vsp,
                     const int* __restrict__ block_tables,
@@ -397,7 +490,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   uint8_t* mine = ring + warp * 2 * stage;
   const Pools<T> pools{kp, vp, ksp, vsp,
                        block_tables + (size_t)s * n_pages,
-                       kQuant<T> ? scale_tables + (size_t)s * n_pages
+                       kScaled<T> ? scale_tables + (size_t)s * n_pages
                                  : nullptr,
                        page, Hkv, hk, D};
 
@@ -418,9 +511,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   for (int i = tid; i < NV * D4; i += kThreads) {
     const int v = i / D4, c = i % D4;
     reinterpret_cast<float4*>(sQ)[i] =
-        v < n_vec ? reinterpret_cast<const float4*>(
-                        q + ((size_t)(tile.r0 + v / G) * H + hk * G + v % G) *
-                                D)[c]
+        v < n_vec ? q4(q + ((size_t)(tile.r0 + v / G) * H + hk * G + v % G) *
+                               D + 4 * c)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
@@ -450,34 +542,17 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     float sc[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v) sc[v] = 0.f;
-    if constexpr (kQuant<T>) {
+    if constexpr (kWide<T>) {
+      constexpr int kVals = CH / static_cast<int>(sizeof(T));  // a copy's
       const uint8_t* krow = r.k + lane * rs;
-      for (int c = 0; c < D; c += CH) {
-        float kf[CH];
-        if constexpr (CH == 16) {
-          const uint4 g = *reinterpret_cast<const uint4*>(krow + c);
-          const float4 f[4] = {widen4(g.x, T{}), widen4(g.y, T{}),
-                               widen4(g.z, T{}), widen4(g.w, T{})};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            kf[4 * u] = f[u].x;
-            kf[4 * u + 1] = f[u].y;
-            kf[4 * u + 2] = f[u].z;
-            kf[4 * u + 3] = f[u].w;
-          }
-        } else {
-          const float4 f =
-              widen4(*reinterpret_cast<const uint32_t*>(krow + c), T{});
-          kf[0] = f.x;
-          kf[1] = f.y;
-          kf[2] = f.z;
-          kf[3] = f.w;
-        }
+      for (int c = 0; c < D; c += kVals) {
+        float kf[kVals];
+        widen_chunk<T, CH>(krow + c * sizeof(T), kf);
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           const float4* qv = reinterpret_cast<const float4*>(sQ + v * D + c);
 #pragma unroll
-          for (int u = 0; u < CH / 4; ++u) {
+          for (int u = 0; u < kVals / 4; ++u) {
             const float4 qq = qv[u];
             sc[v] = fmaf(qq.x, kf[4 * u], sc[v]);
             sc[v] = fmaf(qq.y, kf[4 * u + 1], sc[v]);
@@ -506,13 +581,13 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
         sc[v] += __shfl_xor_sync(kFull, sc[v], kSub);
     }
     float k_sc = scale, v_sc = 1.f;
-    if constexpr (kQuant<T>) {
+    if constexpr (kScaled<T>) {
       k_sc = kvalid ? r.ks[lane] * scale : 0.f;
       v_sc = kvalid ? r.vs[lane] : 0.f;
     }
 
     // online softmax over the sub-tile's keys; p (times v_scale) to
-    // shared memory. 1-byte values take each vector's max by its own chain
+    // shared memory. Widened values take each vector's max by its own chain
     // of shuffles; fp32 takes every vector's in the same five rounds,
     // independent chains the warp overlaps (faster on the card)
     const auto visible_key = [&](int v) {
@@ -530,12 +605,12 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       acc[v][1] *= alpha;
       acc[v][2] *= alpha;
       acc[v][3] *= alpha;
-      if constexpr (kQuant<T>)
+      if constexpr (kWide<T>)
         pw[v * kSub + lane] = p * v_sc;
       else if (lane < kSub)
         pw[v * kSub + lane] = p;
     };
-    if constexpr (kQuant<T>) {
+    if constexpr (kWide<T>) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const bool ok = visible_key(v);
@@ -561,14 +636,14 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     __syncwarp();
 
     // acc += P . V, 4 keys at a time: values 4 * lane.. (p is 0 past nk;
-    // there the widened bytes are finite and fp32 rows are masked)
+    // there widened bytes are finite, and fp32 and bf16 rows are masked)
     if (lane < D4) {
       for (int j = 0; j < nk; j += 4) {
         float4 vf[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           vf[u] = load4<T>(r.v + (j + u) * rs, lane);
-          if constexpr (!kQuant<T>)
+          if constexpr (!kScaled<T>)
             if (j + u >= nk) vf[u] = make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
@@ -628,11 +703,11 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 // Merges the splits of tile blockIdx.x / Hkv (a decode tile, or with
 // `chunks` a batched chunk tile) of vecs vectors; scratch (tiles,
 // n_splits, Hkv, vecs[, D]).
-template <typename Lay>
+template <typename Lay, typename QT>
 __global__ void __launch_bounds__(kThreads)
 merge_splits_kernel(const float* __restrict__ part_o,
                     const float* __restrict__ part_lse, const Lay lay,
-                    float* __restrict__ out, int H, int Hkv, int D, int page,
+                    QT* __restrict__ out, int H, int Hkv, int D, int page,
                     int n_pages, int window, int n_splits, int split_keys,
                     int vecs, int dec_vecs, bool chunks) {
   const int G = H / Hkv;
@@ -643,11 +718,11 @@ merge_splits_kernel(const float* __restrict__ part_o,
   const KeyRange vis =
       visible(tile.qpos0, tile.n_rows, tile.ctx, n_pages * page, window);
   const int n = tile.n_rows * G * D;
-  const auto at = [&](int v, int d) -> float& {
-    return out[((size_t)(tile.r0 + v / G) * H + hk * G + v % G) * D + d];
+  const auto at = [&](int v, int d) {
+    return out + ((size_t)(tile.r0 + v / G) * H + hk * G + v % G) * D + d;
   };
   if (vis.begin >= vis.end) {  // no key: the rows are 0
-    for (int i = threadIdx.x; i < n; i += kThreads) at(i / D, i % D) = 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) put1(at(i / D, i % D), 0.f);
     return;
   }
   const int sp0 = vis.begin / split_keys, sp1 = (vis.end - 1) / split_keys;
@@ -664,34 +739,38 @@ merge_splits_kernel(const float* __restrict__ part_o,
       den += w;
       num = fmaf(part_o[(base + sp * step) * D + d], w, num);
     }
-    at(v, d) = num / fmaxf(den, 1e-30f);
+    put1(at(v, d), num / fmaxf(den, 1e-30f));
   }
 }
 
-// Shared memory of chunk_tile_kernel: q, then for 1-byte values K and V
-// widened (odd float4 stride) and one stage of raw keys (the next tile's
-// copies land in it while this tile's fp32 copy is in use): 72.5 KB at
-// D = 80; for fp32 two stages of K and V tiles: 63 KB at D = 80. Three
-// blocks share an SM either way. Mirrored by body_smem.
+// Shared memory of chunk_tile_kernel: q, then for 1-byte and bf16 values K
+// and V widened (odd float4 stride) and one stage of raw keys (the next
+// tile's copies land in it while this tile's fp32 copy is in use): 72.5 KB
+// at D = 80 for 1-byte values (three blocks an SM), 85.5 KB for bf16 (two);
+// for fp32 two stages of K and V tiles: 63 KB at D = 80 (three). Mirrored
+// by body_smem.
 template <typename T>
 __host__ __device__ constexpr int chunk_smem(int D, int CH) {
   return kChunkVecs * D * 4 +
-         (kQuant<T> ? 2 * kChunkKeys<T> * ((D / 4) | 1) * 16 +
-                          stage_bytes<T>(kChunkKeys<T>, row_stride(D, CH))
-                    : 2 * 2 * kChunkKeys<T> * ((D / 4) | 1) * 16);
+         (kWide<T> ? 2 * kChunkKeys<T> * ((D / 4) | 1) * 16 +
+                         stage_bytes<T>(kChunkKeys<T>,
+                                        row_stride(D * static_cast<int>(
+                                                           sizeof(T)),
+                                                   CH))
+                   : 2 * 2 * kChunkKeys<T> * ((D / 4) | 1) * 16);
 }
 
 // kCC: float4 columns of O a thread holds (the 8 threads of a row cover
 // 32 kCC values of D). 4 serves D <= 128; fp32 at D <= 96 takes 3, and the
 // 16 registers that frees make its chunk tiles faster on the card.
-template <typename T, int CH, typename Lay, int kCC>
+template <typename T, int CH, typename Lay, int kCC, typename QT>
 __global__ void __launch_bounds__(kThreads, 3)
-chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
+chunk_tile_kernel(const QT* __restrict__ q, const T* __restrict__ kp,
                   const T* __restrict__ vp, const float* __restrict__ ksp,
                   const float* __restrict__ vsp,
                   const int* __restrict__ block_tables,
                   const int* __restrict__ scale_tables, const Lay lay,
-                  float* __restrict__ out, float* __restrict__ part_o,
+                  QT* __restrict__ out, float* __restrict__ part_o,
                   float* __restrict__ part_lse, int H, int Hkv, int D,
                   int page, int n_pages, int window, float scale,
                   int dec_vecs, int n_splits, int split_keys) {
@@ -713,14 +792,15 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     if (vis.begin >= vis.end) return;
   }
   const int n_vec = tile.n_rows * G, D4 = D / 4, st4 = D4 | 1;
-  const int rs = kQuant<T> ? row_stride(D, CH) : st4 * 16;
+  const int rs =
+      kWide<T> ? row_stride(D * static_cast<int>(sizeof(T)), CH) : st4 * 16;
   float4* sQ = reinterpret_cast<float4*>(smem);
-  float4* sK = sQ + kChunkVecs * D4;  // 1-byte values: the widened tile
+  float4* sK = sQ + kChunkVecs * D4;  // widened values: the widened tile
   float4* sV = sK + kKeys * st4;
   uint8_t* raw = reinterpret_cast<uint8_t*>(sV + kKeys * st4);
   const Pools<T> pools{kp, vp, ksp, vsp,
                        block_tables + (size_t)s * n_pages,
-                       kQuant<T> ? scale_tables + (size_t)s * n_pages
+                       kScaled<T> ? scale_tables + (size_t)s * n_pages
                                  : nullptr,
                        page, Hkv, hk, D};
   // fp32 key tile t lands in stage t % 2 (K then V)
@@ -735,7 +815,7 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       const int nk = min(kPerWarp, vis.end - k0);
       if (nk > 0) {  // warp-uniform
         Raw r;
-        if constexpr (kQuant<T>) {
+        if constexpr (kWide<T>) {
           r = raw_at<T>(raw, kKeys, rs);
         } else {
           uint8_t* k = reinterpret_cast<uint8_t*>(stage_k(t));
@@ -749,9 +829,8 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   prefetch(0);
   for (int i = tid; i < kChunkVecs * D4; i += kThreads) {
     const int v = i / D4, c = i % D4;
-    sQ[i] = v < n_vec ? reinterpret_cast<const float4*>(
-                            q + ((size_t)(r0 + v / G) * H + hk * G + v % G) *
-                                    D)[c]
+    sQ[i] = v < n_vec ? q4(q + ((size_t)(r0 + v / G) * H + hk * G + v % G) *
+                                   D + 4 * c)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
@@ -780,17 +859,20 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int nk = min(kKeys, vis.end - kb);
     const float4* tK;
     const float4* tV;
-    if constexpr (kQuant<T>) {
+    if constexpr (kWide<T>) {
       const Raw r = raw_at<T>(raw, kKeys, rs);
       for (int i = tid; i < kKeys * D4; i += kThreads) {
         const int j = i / D4, c = i % D4;
         float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
         if (j < nk) {
-          const float a = r.ks[j], bsc = r.vs[j];
           kf = load4<T>(r.k + j * rs, c);
           vf = load4<T>(r.v + j * rs, c);
-          kf = make_float4(kf.x * a, kf.y * a, kf.z * a, kf.w * a);
-          vf = make_float4(vf.x * bsc, vf.y * bsc, vf.z * bsc, vf.w * bsc);
+          if constexpr (kScaled<T>) {
+            const float a = r.ks[j], bsc = r.vs[j];
+            kf = make_float4(kf.x * a, kf.y * a, kf.z * a, kf.w * a);
+            vf = make_float4(vf.x * bsc, vf.y * bsc, vf.z * bsc,
+                             vf.w * bsc);
+          }
         }
         sK[j * st4 + c] = kf;
         sV[j * st4 + c] = vf;
@@ -812,7 +894,7 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 
     // S = Q K^T for this thread's 4 x kJ micro-tile; fp32 takes two
     // float4s of D a trip, so the next loads issue under this one's FMAs
-    // (faster on the card; slower for 1-byte values, which keep one)
+    // (faster on the card; slower for widened values, which keep one)
     float sc[4][kJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -834,7 +916,7 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           sc[i][j] = fmaf(qq[i].w, kk[j].w, sc[i][j]);
         }
     };
-    if constexpr (kQuant<T>) {
+    if constexpr (kWide<T>) {
       for (int c = 0; c < D4; ++c) score(c);
     } else {
 #pragma unroll 2
@@ -877,14 +959,14 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     }
     // O += P V over the tile's keys in order: key 8 jj + kk's p comes from
     // lane kk of this row's 8 (nk is block-uniform: every lane shuffles).
-    // 1-byte values stop at nk; fp32 runs the whole tile without a branch
+    // widened values stop at nk; fp32 runs the whole tile without a branch
     // (p is 0 past nk and those V rows were zeroed)
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         const int j = 8 * jj + kk;
-        if constexpr (kQuant<T>)
+        if constexpr (kWide<T>)
           if (j >= nk) break;
         float p[4];
 #pragma unroll
@@ -918,22 +1000,27 @@ chunk_tile_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int v = tv + 16 * i;
     if (!vok[i]) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
-    size_t idx = 0;  // this split's scratch row
-    float4* orow;
+    float* prow = nullptr;  // this split's scratch row
+    QT* orow = out + ((size_t)(r0 + v / G) * H + hk * G + v % G) * D;
     if (n_splits > 1) {
-      idx = (((size_t)b * n_splits + sp) * Hkv + hk) * kChunkVecs + v;
-      orow = reinterpret_cast<float4*>(part_o + idx * D);
+      const size_t idx =
+          (((size_t)b * n_splits + sp) * Hkv + hk) * kChunkVecs + v;
+      prow = part_o + idx * D;
       if (tk == 0) part_lse[idx] = li > 0.f ? m[i] + logf(li) : kNegInf;
-    } else {
-      orow = reinterpret_cast<float4*>(
-          out + ((size_t)(r0 + v / G) * H + hk * G + v % G) * D);
     }
 #pragma unroll
     for (int cc = 0; cc < kCC; ++cc) {
       const int c = tk + 8 * cc;
-      if (c < D4)
-        orow[c] = make_float4(acc[i][cc].x * inv, acc[i][cc].y * inv,
-                              acc[i][cc].z * inv, acc[i][cc].w * inv);
+      if (c < D4) {
+        const float4 o = make_float4(acc[i][cc].x * inv, acc[i][cc].y * inv,
+                                     acc[i][cc].z * inv, acc[i][cc].w * inv);
+        if constexpr (std::is_same<QT, float>::value)  // one store path
+          put4(n_splits > 1 ? prow + 4 * c : orow + 4 * c, o);
+        else if (n_splits > 1)
+          put4(prow + 4 * c, o);
+        else
+          put4(orow + 4 * c, o);
+      }
     }
   }
 }
@@ -965,10 +1052,10 @@ cudaError_t allow_smem(int bytes) {
 // of tile). dec_smem and chunk_smem are the plan's shared memory
 // (body_smem); a plan that disagrees with this file is refused. Returns the
 // first launch error, or 0.
-template <typename T, int CH, typename Lay>
-int launch(const float* q, const T* kp, const T* vp, const float* ks,
+template <typename T, int CH, typename Lay, typename QT>
+int launch(const QT* q, const T* kp, const T* vp, const float* ks,
            const float* vs, const int* bt, const int* st, const Lay& lay,
-           float* out, float* part_o, float* part_lse, int H, int Hkv, int D,
+           QT* out, float* part_o, float* part_lse, int H, int Hkv, int D,
            int page, int n_pages, int window, float scale, int dec_tiles,
            int dec_vecs, int n_splits, int split_keys, int chunk_tiles,
            int chunk_splits, int chunk_split_keys, int dec_smem,
@@ -989,16 +1076,16 @@ int launch(const float* q, const T* kp, const T* vp, const float* ks,
     };
     err = cudaErrorInvalidValue;  // dec_vecs not 4, 8 or 16
     if (dec_vecs == 4)
-      err = decode(decode_split_kernel<T, CH, 4, Lay>,
-                   allow_smem<decode_split_kernel<T, CH, 4, Lay>>(dec));
+      err = decode(decode_split_kernel<T, CH, 4, Lay, QT>,
+                   allow_smem<decode_split_kernel<T, CH, 4, Lay, QT>>(dec));
     if (dec_vecs == 8)
-      err = decode(decode_split_kernel<T, CH, 8, Lay>,
-                   allow_smem<decode_split_kernel<T, CH, 8, Lay>>(dec));
+      err = decode(decode_split_kernel<T, CH, 8, Lay, QT>,
+                   allow_smem<decode_split_kernel<T, CH, 8, Lay, QT>>(dec));
     if (dec_vecs == 16)
-      err = decode(decode_split_kernel<T, CH, 16, Lay>,
-                   allow_smem<decode_split_kernel<T, CH, 16, Lay>>(dec));
+      err = decode(decode_split_kernel<T, CH, 16, Lay, QT>,
+                   allow_smem<decode_split_kernel<T, CH, 16, Lay, QT>>(dec));
     if (err != cudaSuccess) return static_cast<int>(err);
-    merge_splits_kernel<Lay><<<dec_tiles * Hkv, kThreads, 0, stream>>>(
+    merge_splits_kernel<Lay, QT><<<dec_tiles * Hkv, kThreads, 0, stream>>>(
         part_o, part_lse, lay, out, H, Hkv, D, page, n_pages, window,
         n_splits, split_keys, dec_vecs, dec_vecs, false);
     if ((err = cudaGetLastError()) != cudaSuccess)
@@ -1014,17 +1101,18 @@ int launch(const float* q, const T* kp, const T* vp, const float* ks,
       return cudaGetLastError();
     };
     err = cudaErrorInvalidValue;
-    if constexpr (!kQuant<T>) {  // 1-byte values: only 4 columns
+    if constexpr (!kWide<T>) {  // widened values: only 4 columns
       if (D <= 96)
-        err = chunk(chunk_tile_kernel<T, CH, Lay, 3>,
-                    allow_smem<chunk_tile_kernel<T, CH, Lay, 3>>(chk));
+        err = chunk(chunk_tile_kernel<T, CH, Lay, 3, QT>,
+                    allow_smem<chunk_tile_kernel<T, CH, Lay, 3, QT>>(chk));
     }
-    if (kQuant<T> || D > 96)
-      err = chunk(chunk_tile_kernel<T, CH, Lay, 4>,
-                  allow_smem<chunk_tile_kernel<T, CH, Lay, 4>>(chk));
+    if (kWide<T> || D > 96)
+      err = chunk(chunk_tile_kernel<T, CH, Lay, 4, QT>,
+                  allow_smem<chunk_tile_kernel<T, CH, Lay, 4, QT>>(chk));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (chunk_splits > 1) {
-      merge_splits_kernel<Lay><<<chunk_tiles * Hkv, kThreads, 0, stream>>>(
+      merge_splits_kernel<Lay, QT>
+          <<<chunk_tiles * Hkv, kThreads, 0, stream>>>(
           part_o, part_lse, lay, out, H, Hkv, D, page, n_pages, window,
           chunk_splits, chunk_split_keys, kChunkVecs, dec_vecs, true);
       if ((err = cudaGetLastError()) != cudaSuccess)

@@ -1,4 +1,4 @@
-// Mamba2 SSD chunk scan, fp32, for Hopper (sm_90a).
+// Mamba2 SSD chunk scan, fp32 and bf16 inputs, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/mamba2_scan.py::mamba_chunk_scan (grid body _kernel).
@@ -97,8 +97,28 @@
 // loads, the causal tiles of dY Xᵀ and Mᵀ dY formed whole and masked by a
 // select (B7 makes it fast). No atomics: every sum has one order, so a
 // repeat is bitwise equal.
+//
+// bf16. The Pallas kernel casts its blocks to fp32 and writes y in xdt's
+// dtype, the state in fp32; the model's ssd_chunked casts xdt, a_dt, b and
+// c to fp32 and returns fp32 y, and its mamba_seq hands it fp32 xdt and
+// a_dt with b and c in the compute dtype. So the inputs come in two types,
+// TX (xdt and a_dt) and TB (b and c), each fp32 or bf16, and y in TY; the
+// launchers below instantiate (TX, TB, TY) = (f32, f32, f32), (f32, bf16,
+// f32) (the model's at bf16 compute) and (bf16, bf16, bf16) (the kernel's
+// contract); the backward takes f32 xdt and a_dt (the model's) with TB
+// b and c, and reads y in f32.
+// bf16 is widened to fp32 exactly where it is loaded (a bf16 is the top
+// half of its fp32): launches 2 and 4 copy 4 values by an 8-byte cp.async
+// into the first half of their fp32 slot and the copying thread widens
+// the slot in place when its copies land, before the slab's one barrier;
+// launch 1 and the backward load and widen directly. Scratch, states and
+// every sum stay fp32; y, and the backward's dxdt, da_dt, db and dc, are
+// rounded once to their input's type (round to nearest even: the VJP of
+// astype(f32)). dY is fp32 (the model's y is).
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -141,12 +161,87 @@ __device__ __forceinline__ void zero4(float* dst) {
   *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+using bf16 = __nv_bfloat16;
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ void cp8(float* dst, const bf16* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 widen4(uint2 g) {  // 4 bf16, exactly
+  return make_float4(__uint_as_float(g.x << 16),
+                     __uint_as_float(g.x & 0xffff0000u),
+                     __uint_as_float(g.y << 16),
+                     __uint_as_float(g.y & 0xffff0000u));
+}
+
+// 4 consecutive input values into an fp32 slot of shared memory by
+// cp.async: fp32 whole; bf16 into the slot's first 8 bytes, for widen_slot
+// once the copy has landed
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  cp16(dst, src);
+}
+
+__device__ __forceinline__ void cp4(float* dst, const bf16* src) {
+  cp8(dst, src);
+}
+
+template <typename T>
+__device__ __forceinline__ void widen_slot(float* slot) {
+  if constexpr (kBf16<T>)
+    *reinterpret_cast<float4*>(slot) =
+        widen4(*reinterpret_cast<const uint2*>(slot));
+}
+
+// 4 consecutive input values into an fp32 slot, synchronously for bf16
+__device__ __forceinline__ void load4(float* dst, const float* src) {
+  cp16(dst, src);
+}
+
+__device__ __forceinline__ void load4(float* dst, const bf16* src) {
+  *reinterpret_cast<float4*>(dst) =
+      widen4(*reinterpret_cast<const uint2*>(src));
+}
+
+// one input value as fp32, and one output value in its type (bf16 rounded
+// once to nearest even)
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+
+__device__ __forceinline__ float ldf(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void put1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void put1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void put4(float* p, float a, float b, float c,
+                                     float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void put4(bf16* p, float a, float b, float c,
+                                     float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
 // ---------------------------------------------------------------------------
 // launch 1: acum, decay, Cᵀ and the causal tiles of Gᵀ
 
+template <typename TX, typename TB>
 __global__ void __launch_bounds__(kPrepThreads)
-chunk_prep_kernel(const float* __restrict__ a, const float* __restrict__ bm,
-                  const float* __restrict__ cm, float* __restrict__ acum,
+chunk_prep_kernel(const TX* __restrict__ a, const TB* __restrict__ bm,
+                  const TB* __restrict__ cm, float* __restrict__ acum,
                   float* __restrict__ decay, float* __restrict__ ct,
                   float* __restrict__ gt, int NC, int L, int H, int N,
                   int LP) {
@@ -162,13 +257,14 @@ chunk_prep_kernel(const float* __restrict__ a, const float* __restrict__ bm,
     const int r = e >> 5, c4 = e & 31, i = i0 + r;
     float* d = cs + r * CSTR + 4 * c4;
     if (i < L && 4 * c4 < N)
-      cp16(d, cm + (bc * L + i) * N + 4 * c4);
+      load4(d, cm + (bc * L + i) * N + 4 * c4);
     else
       zero4(d);
   }
   for (int e = tid; e < jmax * (NT / 4); e += kPrepThreads) {
     const int j = e >> 5, c4 = e & 31;
-    if (4 * c4 < N) cp16(bs + j * CSTR + 4 * c4, bm + (bc * L + j) * N + 4 * c4);
+    if (4 * c4 < N)
+      load4(bs + j * CSTR + 4 * c4, bm + (bc * L + j) * N + 4 * c4);
   }
   commit();
 
@@ -179,7 +275,7 @@ chunk_prep_kernel(const float* __restrict__ a, const float* __restrict__ bm,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int l = lane * 4 + k;
-      run += l < L ? a[(bc * L + l) * H + h] : 0.f;
+      run += l < L ? ldf(a + (bc * L + l) * H + h) : 0.f;
       v[k] = run;
     }
     float incl = run;
@@ -277,9 +373,10 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][2][8]) {
 }
 
 // rows 32R + ay + e below `rows` and columns bx + {0..3}, 32 + bx + {0..3}
-// below P of a row-major output whose rows are `stride` floats apart
+// below P of a row-major output whose rows are `stride` values apart
+template <typename OT>
 __device__ __forceinline__ void store_tile(const float (&acc)[4][2][8],
-                                           float* out, size_t stride,
+                                           OT* out, size_t stride,
                                            int rows, int P, int ay, int bx) {
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -287,13 +384,12 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][2][8],
     for (int e = 0; e < 2; ++e) {
       const int i = 32 * r + ay + e;
       if (i >= rows) continue;
-      float* o = out + i * stride;
+      OT* o = out + i * stride;
       if (bx < P)
-        *reinterpret_cast<float4*>(o + bx) = make_float4(
-            acc[r][e][0], acc[r][e][1], acc[r][e][2], acc[r][e][3]);
+        put4(o + bx, acc[r][e][0], acc[r][e][1], acc[r][e][2], acc[r][e][3]);
       if (32 + bx < P)
-        *reinterpret_cast<float4*>(o + 32 + bx) = make_float4(
-            acc[r][e][4], acc[r][e][5], acc[r][e][6], acc[r][e][7]);
+        put4(o + 32 + bx, acc[r][e][4], acc[r][e][5], acc[r][e][6],
+             acc[r][e][7]);
     }
 }
 
@@ -308,9 +404,9 @@ __device__ __forceinline__ void load_acum(float* slot, const float* acum,
 // it is the backward's launch 1 instead (bwd_state_kernel): x is dY, bm is
 // C, and the weight of step j is exp(acum_j), so it writes U = Cᵀ
 // (exp(acum) ⊙ dY)
-template <bool kGrad>
+template <bool kGrad, typename TX, typename TB>
 __device__ __forceinline__ void chunk_state_body(
-    const float* __restrict__ x, const float* __restrict__ bm,
+    const TX* __restrict__ x, const TB* __restrict__ bm,
     const float* __restrict__ acum, float* __restrict__ states, int NC,
     int L, int H, int P, int N, int LP, int HB) {
   extern __shared__ __align__(16) float smem[];
@@ -334,7 +430,7 @@ __device__ __forceinline__ void chunk_state_body(
       if (j >= L)
         zero4(d);
       else if (4 * c4 < N)
-        cp16(d, bm + (bc * L + j) * N + 4 * c4);
+        cp4(d, bm + (bc * L + j) * N + 4 * c4);
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {   // X[j][p]
@@ -343,24 +439,34 @@ __device__ __forceinline__ void chunk_state_body(
       if (j >= L)
         zero4(d);
       else if (4 * c4 < P)
-        cp16(d, x + (bc * L + j) * xrow + static_cast<size_t>(h0 + hh) * P +
-                    4 * c4);
+        cp4(d, x + (bc * L + j) * xrow + static_cast<size_t>(h0 + hh) * P +
+                   4 * c4);
     }
     if (u == ns - 1 && hh + 1 < nh)
       load_acum(slots + ((hh + 1) % kAcumSlots) * LT, acum, bc, H, h0 + hh + 1,
                 LP);
   };
-  // w_j = exp(acum_L − acum_j) (kGrad: exp(acum_j)) on the rows of X this
-  // thread copied
+  // bf16 B rows this thread copied widened in place; then w_j =
+  // exp(acum_L − acum_j) (kGrad: exp(acum_j)) on the rows of X it copied
+  // (widened first)
   auto weigh = [&](int buf, int hh, int u) {
     float* bs = smem + buf * kStageFloats + kAFloats;
     const int j0 = u * KS;
     const float* ac = slots + (hh % kAcumSlots) * LT;
     const float last = ac[L - 1];
+    if constexpr (kBf16<TB>) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int k = (tid >> 5) + 4 * q, c4 = tid & 31, j = j0 + k;
+        if (j < L && 4 * c4 < N)
+          widen_slot<TB>(smem + buf * kStageFloats + k * LT + 4 * c4);
+      }
+    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = (tid >> 4) + 8 * q, c4 = tid & 15, j = j0 + k;
       if (j < L && 4 * c4 < P) {
+        widen_slot<TX>(bs + k * PT + 4 * c4);
         float4* v = reinterpret_cast<float4*>(bs + k * PT + 4 * c4);
         const float w = __expf(kGrad ? ac[j] : last - ac[j]);
         float4 g = *v;
@@ -402,8 +508,9 @@ __device__ __forceinline__ void chunk_state_body(
   }
 }
 
+template <typename TX, typename TB>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+chunk_state_kernel(const TX* __restrict__ x, const TB* __restrict__ bm,
                    const float* __restrict__ acum, float* __restrict__ states,
                    int NC, int L, int H, int P, int N, int LP, int HB) {
   chunk_state_body<false>(x, bm, acum, states, NC, L, H, P, N, LP, HB);
@@ -489,10 +596,11 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
 
 // launch 4: y for one chunk and HB heads. zero_start: no initial state, so
 // chunk 0 carries none in and skips C · state
+template <typename TX, typename TY>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ ct,
+chunk_scan_kernel(const TX* __restrict__ x, const float* __restrict__ ct,
                   const float* __restrict__ gt, const float* __restrict__ acum,
-                  const float* __restrict__ prev, float* __restrict__ y,
+                  const float* __restrict__ prev, TY* __restrict__ y,
                   int NC, int L, int H, int P, int N, int LP, int HB,
                   int zero_start) {
   extern __shared__ __align__(16) float smem[];
@@ -551,17 +659,26 @@ chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ ct,
         if (j >= L)
           zero4(d);
         else if (4 * c4 < P)
-          cp16(d, x + (bc * L + j) * xrow + static_cast<size_t>(h) * P +
-                      4 * c4);
+          cp4(d, x + (bc * L + j) * xrow + static_cast<size_t>(h) * P +
+                     4 * c4);
       }
     }
     if (u == tph - 1 && hh + 1 < nh)
       load_acum(slots + ((hh + 1) % kAcumSlots) * LT, acum, bc, H, h + 1, LP);
   };
   // M = Gᵀ ⊙ exp(acum_i − acum_j) for i >= j, else 0, on the entries of a
-  // key slab this thread copied
+  // key slab this thread copied (and bf16 X rows it copied, widened)
   auto decay_mask = [&](int buf, int hh, int u) {
     if (u < nst) return;
+    if constexpr (kBf16<TX>) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = (tid >> 4) + 8 * q, c4 = tid & 15;
+        if ((u - nst) * KS + k < L && 4 * c4 < P)
+          widen_slot<TX>(smem + buf * kStageFloats + kAFloats + k * PT +
+                         4 * c4);
+      }
+    }
     const int s = u - nst, j0 = s * KS, i4 = tid & 31;
     if (i4 < 8 * s || 4 * i4 >= LP) return;
     float* as = smem + buf * kStageFloats;
@@ -634,8 +751,9 @@ constexpr int GLD = LT + 1;             // row stride of a grad slab: the
 constexpr int kRowTile = 64;            // launch 5: rows a block
 
 // launch 1: U = Cᵀ (exp(acum) ⊙ dY) on launch 2's body
+template <typename TB>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-bwd_state_kernel(const float* __restrict__ dy, const float* __restrict__ cm,
+bwd_state_kernel(const float* __restrict__ dy, const TB* __restrict__ cm,
                  const float* __restrict__ acum, float* __restrict__ u,
                  int NC, int L, int H, int P, int N, int LP, int HB) {
   chunk_state_body<true>(dy, cm, acum, u, NC, L, H, P, N, LP, HB);
@@ -709,10 +827,11 @@ __device__ __forceinline__ void fill_by_col(float* slab, F f) {
 //   da = the reverse cumulative sum of dacum.
 // Σ_p dY ⊙ y stands for the row sums of dM ⊙ M plus Σ_p dY ⊙ y_off (y =
 // M X + y_off), so neither C Sᵀ nor the row sums are formed.
+template <typename TB>
 __global__ void __launch_bounds__(kGradThreads)
 bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                   const float* __restrict__ y, const float* __restrict__ gt,
-                  const float* __restrict__ bm, const float* __restrict__ acum,
+                  const TB* __restrict__ bm, const float* __restrict__ acum,
                   const float* __restrict__ decay,
                   const float* __restrict__ states,
                   const float* __restrict__ dstates, float* __restrict__ dx,
@@ -736,7 +855,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const float* dyh = dy + head;
   const float* yh = y + head;
   const float* g = gt + bc * L * LP;  // Gᵀ[j][i] at g[j·LP + i]
-  const float* bb = bm + bc * L * N;
+  const TB* bb = bm + bc * L * N;
   const float* sh = states + bch * N * P;  // [n][p]
   const float* dh = dstates + bch * N * P;
   for (int i = tid; i < LT; i += kGradThreads) {
@@ -754,7 +873,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       return r < L && p0 + k < P ? dyh[r * xrow + p0 + k] : 0.f;
     });
     fill_by_k(bs, LT, [&](int k, int r) {
-      return r < L && p0 + k < P ? xh[r * xrow + p0 + k] : 0.f;
+      return r < L && p0 + k < P ? ldf(xh + r * xrow + p0 + k) : 0.f;
     });
     __syncthreads();
     mm_slab(acc, as, bs, ty, tx);
@@ -794,7 +913,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   zero_tile(acx);
   for (int n0 = 0; n0 < N; n0 += KS) {
     fill_by_k(as, LT, [&](int k, int r) {
-      return r < L && n0 + k < N ? bb[r * N + n0 + k] : 0.f;
+      return r < L && n0 + k < N ? ldf(bb + r * N + n0 + k) : 0.f;
     });
     fill_by_col<PT>(bs, [&](int k, int c) {
       return n0 + k < N && c < P ? dh[(n0 + k) * P + c] : 0.f;
@@ -812,7 +931,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     for (int q = 0; q < 4; ++q) {
       acx[r][q] *= w;
       const int p = tx + 16 * q;
-      if (j < L && p < P) t = fmaf(xh[j * xrow + p], acx[r][q], t);
+      if (j < L && p < P) t = fmaf(ldf(xh + j * xrow + p), acx[r][q], t);
     }
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
@@ -839,7 +958,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int p = tx + 16 * q;
-      if (j < L && p < P) dx[head + j * xrow + p] = acx[r][q];
+      if (j < L && p < P) put1(dx + head + j * xrow + p, acx[r][q]);
     }
   }
 
@@ -885,7 +1004,7 @@ bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int l = 4 * lane + k;
-      if (l < L) da[(bc * L + l) * H + h] = v[k] + excl;
+      if (l < L) put1(da + (bc * L + l) * H + h, v[k] + excl);
     }
   }
 }
@@ -909,14 +1028,15 @@ bwd_dg_sum_kernel(const float* __restrict__ dg, float* __restrict__ dgs, int H,
 //   dB = Σ_h dG_hᵀ C + Σ_h (w_h ⊙ X_h) D_hᵀ,
 // the first term over the L keys of Σ_h dG (launch 4), the second over the
 // H·P pairs (h, p), one 32-deep slab of p at a time
+template <typename TB>
 __global__ void __launch_bounds__(kGradThreads)
 bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-               const float* __restrict__ bm, const float* __restrict__ cm,
+               const TB* __restrict__ bm, const TB* __restrict__ cm,
                const float* __restrict__ acum,
                const float* __restrict__ states,
                const float* __restrict__ dstates,
-               const float* __restrict__ dgs, float* __restrict__ db,
-               float* __restrict__ dc, int NC, int L, int H, int P, int N,
+               const float* __restrict__ dgs, TB* __restrict__ db,
+               TB* __restrict__ dc, int NC, int L, int H, int P, int N,
                int LP) {
   __shared__ float as[KS * GLD];
   __shared__ float bs[KS * GLD];
@@ -927,8 +1047,9 @@ bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const size_t bc = static_cast<size_t>(blockIdx.z) * NC + blockIdx.y;
   const size_t xrow = static_cast<size_t>(H) * P;
   const float* gs = dgs + bc * L * L;              // Σ_h dG [i][j]
-  const float* other = (is_b ? cm : bm) + bc * L * N;
-  const float* src = (is_b ? x : dy) + bc * L * xrow;
+  const TB* other = (is_b ? cm : bm) + bc * L * N;
+  const float* xs = x + bc * L * xrow;  // dB's source, X
+  const float* dys = dy + bc * L * xrow;   // dC's, dY
   const float* st = is_b ? dstates : states;
   float acc[4][8];
   zero_tile(acc);
@@ -942,7 +1063,7 @@ bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         return k0 + k < L && r0 + r < L ? gs[(r0 + r) * L + k0 + k] : 0.f;
       });
     fill_by_col<NT>(bs, [&](int k, int n) {
-      return k0 + k < L && n < N ? other[(k0 + k) * N + n] : 0.f;
+      return k0 + k < L && n < N ? ldf(other + (k0 + k) * N + n) : 0.f;
     });
     __syncthreads();
     mm_slab(acc, as, bs, ty, tx);
@@ -960,10 +1081,9 @@ bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     for (int p0 = 0; p0 < P; p0 += KS) {
       fill_by_k(as, kRowTile, [&](int k, int r) {
         const int i = r0 + r;
-        return i < L && p0 + k < P
-                   ? ex[r] * src[i * xrow + static_cast<size_t>(h) * P + p0 +
-                                 k]
-                   : 0.f;
+        if (!(i < L && p0 + k < P)) return 0.f;
+        const size_t at = i * xrow + static_cast<size_t>(h) * P + p0 + k;
+        return ex[r] * (is_b ? ldf(xs + at) : dys[at]);
       });
       fill_by_k(bs, NT, [&](int k, int n) {
         return n < N && p0 + k < P ? sh[n * P + p0 + k] : 0.f;
@@ -973,43 +1093,36 @@ bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       __syncthreads();
     }
   }
-  float* out = (is_b ? db : dc) + bc * L * N;
+  TB* out = (is_b ? db : dc) + bc * L * N;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = r0 + ty + 16 * r;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int n = tx + 16 * q;
-      if (i < L && n < N) out[i * N + n] = acc[r][q];
+      if (i < L && n < N) put1(out + i * N + n, acc[r][q]);
     }
   }
 }
 
+// The dynamic shared memory and carve-out of one instantiation's launches
+// 1, 2 and 4 (and the backward's launch 1) on the current device.
+template <typename TX, typename TB, typename TY>
 void set_attributes() {
-  cudaFuncSetAttribute(chunk_prep_kernel,
+  const auto pipe = [](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kPipeBytes);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+  };
+  cudaFuncSetAttribute(chunk_prep_kernel<TX, TB>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kPrepBytes);
-  cudaFuncSetAttribute(chunk_state_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kPipeBytes);
-  cudaFuncSetAttribute(chunk_scan_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kPipeBytes);
-  cudaFuncSetAttribute(chunk_state_kernel,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  cudaFuncSetAttribute(bwd_state_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kPipeBytes);
-  cudaFuncSetAttribute(bwd_state_kernel,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  cudaFuncSetAttribute(chunk_scan_kernel,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
+  pipe(chunk_state_kernel<TX, TB>);
+  pipe(chunk_scan_kernel<TX, TY>);
+  pipe(bwd_state_kernel<TB>);
 }
-
-}  // namespace
 
 // The four launches on `stream`, as the wrapper's plan
 // (kernels/mamba2_scan.py::scan_plan) lays them out: hb_state and hb_scan
@@ -1017,30 +1130,31 @@ void set_attributes() {
 // launches 1, 2 and 4, which must be the sizes this source uses (else
 // cudaErrorInvalidValue, nothing launched). Scratch of the caller: states
 // (B, NC, H, N, P), decay (B, NC, H), acum (B, NC, H, LP), ct (B, NC, N,
-// LP) and gt (B, NC, L, LP), LP = L rounded up to 4; s0 may be null (a
-// zero start). Takes 1 <= L <= 128, 4 <= N <= 128 and 4 <= P <= 64, N and
-// P multiples of 4, every pointer 16-byte aligned (the wrapper checks).
-// Returns the first launch error, or 0.
-extern "C" int mamba2_scan_f32(const float* x, const float* a, const float* b,
-                               const float* c, const float* s0, float* y,
-                               float* sout, float* states, float* decay,
-                               float* acum, float* ct, float* gt, int B,
-                               int NC, int L, int H, int P, int N,
-                               int hb_state, int hb_scan, int smem_prep,
-                               int smem_state, int smem_scan, void* stream) {
+// LP) and gt (B, NC, L, LP), LP = L rounded up to 4, all f32; s0 (f32) may
+// be null (a zero start). Takes 1 <= L <= 128, 4 <= N <= 128 and 4 <= P <=
+// 64, N and P multiples of 4, every pointer 16-byte aligned (the wrapper
+// checks). Returns the first launch error, or 0.
+template <typename TX, typename TB, typename TY>
+int scan_forward(const TX* x, const TX* a, const TB* b, const TB* c,
+                 const float* s0, TY* y, float* sout, float* states,
+                 float* decay, float* acum, float* ct, float* gt, int B,
+                 int NC, int L, int H, int P, int N, int hb_state,
+                 int hb_scan, int smem_prep, int smem_state, int smem_scan,
+                 void* stream) {
   if (smem_prep != kPrepBytes || smem_state != kPipeBytes ||
       smem_scan != kPipeBytes || hb_state < 1 || hb_scan < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int LP = (L + 3) / 4 * 4;
-  set_attributes();
-  chunk_prep_kernel<<<dim3((LP + 31) / 32, NC, B), kPrepThreads, kPrepBytes,
-                      st>>>(a, b, c, acum, decay, ct, gt, NC, L, H, N, LP);
+  set_attributes<TX, TB, TY>();
+  chunk_prep_kernel<TX, TB>
+      <<<dim3((LP + 31) / 32, NC, B), kPrepThreads, kPrepBytes, st>>>(
+          a, b, c, acum, decay, ct, gt, NC, L, H, N, LP);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_state_kernel<<<dim3((H + hb_state - 1) / hb_state, NC, B), kThreads,
-                       kPipeBytes, st>>>(x, b, acum, states, NC, L, H, P, N,
-                                         LP, hb_state);
+  chunk_state_kernel<TX, TB>
+      <<<dim3((H + hb_state - 1) / hb_state, NC, B), kThreads, kPipeBytes,
+         st>>>(x, b, acum, states, NC, L, H, P, N, LP, hb_state);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t quads = static_cast<size_t>(B) * H * N * P / 4;
@@ -1050,55 +1164,38 @@ extern "C" int mamba2_scan_f32(const float* x, const float* a, const float* b,
                                              H, P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_scan_kernel<<<dim3((H + hb_scan - 1) / hb_scan, NC, B), kThreads,
-                      kPipeBytes, st>>>(x, ct, gt, acum, states, y, NC, L, H,
-                                        P, N, LP, hb_scan, s0 == nullptr);
+  chunk_scan_kernel<TX, TY>
+      <<<dim3((H + hb_scan - 1) / hb_scan, NC, B), kThreads, kPipeBytes,
+         st>>>(x, ct, gt, acum, states, y, NC, L, H, P, N, LP, hb_scan,
+               s0 == nullptr);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The blocks an SM the runtime grants each launch at its block size and
-// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), on the
-// current device, into blocks[0..3]: chunk_prep, chunk_state, state_pass,
-// chunk_scan. Returns the first error, or 0.
-extern "C" int mamba2_scan_occupancy(int* blocks) {
-  set_attributes();
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, chunk_prep_kernel, kPrepThreads, kPrepBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks + 1, chunk_state_kernel, kThreads, kPipeBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks + 2, state_pass_kernel, kPassThreads, 0);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks + 3, chunk_scan_kernel, kThreads, kPipeBytes);
-  return static_cast<int>(err);
 }
 
 // The backward's five launches on `stream`, from what the forward left in
 // its scratch: states (B, NC, H, N, P) the carried states, acum, decay and
-// gt as mamba2_scan_f32 wrote them, and y its output. dy is y's gradient,
-// dfinal the final state's (null: zeros), dinit the initial state's
-// (null: not wanted). Scratch of the caller: dstates (B, NC, H, N, P), dg
-// (B, NC, H, L, L), dgsum (B, NC, L, L). Out: dx (B, NC, L, H, P), da (B,
-// NC, L, H), db and dc (B, NC, L, N). hb_state and smem_state as for the
-// forward's launch 2. Returns the first launch error, or 0.
-extern "C" int mamba2_scan_bwd_f32(
-    const float* x, const float* b, const float* c, const float* y,
-    const float* dy, const float* dfinal, float* dinit, const float* states,
-    const float* acum, const float* decay, const float* gt, float* dstates,
-    float* dg, float* dgsum, float* dx, float* da, float* db, float* dc,
-    int B, int NC, int L, int H, int P, int N, int hb_state, int smem_state,
-    void* stream) {
+// gt as scan_forward wrote them, and y its output (f32). dy is y's
+// gradient (f32), dfinal the final state's (f32, null: zeros), dinit the
+// initial state's (f32, null: not wanted). Scratch of the caller (f32):
+// dstates (B, NC, H, N, P), dg (B, NC, H, L, L), dgsum (B, NC, L, L). Out,
+// each in its input's type: dx (B, NC, L, H, P), da (B, NC, L, H), db and
+// dc (B, NC, L, N). hb_state and smem_state as for the forward's launch 2.
+// Returns the first launch error, or 0.
+template <typename TB>
+int scan_backward(const float* x, const TB* b, const TB* c, const float* y,
+                  const float* dy, const float* dfinal, float* dinit,
+                  const float* states, const float* acum, const float* decay,
+                  const float* gt, float* dstates, float* dg, float* dgsum,
+                  float* dx, float* da, TB* db, TB* dc, int B, int NC, int L,
+                  int H, int P, int N, int hb_state, int smem_state,
+                  void* stream) {
   if (smem_state != kPipeBytes || hb_state < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int LP = (L + 3) / 4 * 4;
-  set_attributes();
-  bwd_state_kernel<<<dim3((H + hb_state - 1) / hb_state, NC, B), kThreads,
-                     kPipeBytes, st>>>(dy, c, acum, dstates, NC, L, H, P, N,
-                                       LP, hb_state);
+  set_attributes<float, TB, float>();
+  bwd_state_kernel<TB>
+      <<<dim3((H + hb_state - 1) / hb_state, NC, B), kThreads, kPipeBytes,
+         st>>>(dy, c, acum, dstates, NC, L, H, P, N, LP, hb_state);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t quads = static_cast<size_t>(B) * H * N * P / 4;
@@ -1108,7 +1205,7 @@ extern "C" int mamba2_scan_bwd_f32(
                                            NC, H, P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_chunk_kernel<<<dim3(H, NC, B), kGradThreads, 0, st>>>(
+  bwd_chunk_kernel<TB><<<dim3(H, NC, B), kGradThreads, 0, st>>>(
       x, dy, y, gt, b, acum, decay, states, dstates, dx, dg, da, NC, L, H, P,
       N, LP);
   err = cudaGetLastError();
@@ -1120,8 +1217,99 @@ extern "C" int mamba2_scan_bwd_f32(
                       kPassThreads, 0, st>>>(dg, dgsum, H, ll, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_bc_kernel<<<dim3(2 * ((L + kRowTile - 1) / kRowTile), NC, B),
-                  kGradThreads, 0, st>>>(x, dy, b, c, acum, states, dstates,
-                                         dgsum, db, dc, NC, L, H, P, N, LP);
+  bwd_bc_kernel<TB><<<dim3(2 * ((L + kRowTile - 1) / kRowTile), NC, B),
+                      kGradThreads, 0, st>>>(x, dy, b, c, acum, states,
+                                             dstates, dgsum, db, dc, NC, L, H,
+                                             P, N, LP);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C launchers (bound with ctypes), one per (xdt and a_dt, b and c,
+// y) type that a caller runs, arguments as scan_forward's; then the
+// backward's, one per (xdt and a_dt, b and c) type, arguments as
+// scan_backward's. The backward reads an f32 y and takes f32 xdt and a_dt,
+// as the model gives them (x·dt in f32); a bf16 xdt is forward-only.
+
+// fp32 everywhere
+extern "C" int mamba2_scan_f32(
+    const float* x, const float* a, const float* b, const float* c,
+    const float* s0, float* y, float* sout, float* states, float* decay,
+    float* acum, float* ct, float* gt, int B, int NC, int L, int H, int P,
+    int N, int hb_state, int hb_scan, int smem_prep, int smem_state,
+    int smem_scan, void* stream) {
+  return scan_forward(x, a, b, c, s0, y, sout, states, decay, acum, ct, gt, B,
+                      NC, L, H, P, N, hb_state, hb_scan, smem_prep,
+                      smem_state, smem_scan, stream);
+}
+
+// the model's at bf16 compute: f32 xdt and a_dt, bf16 b and c, f32 y
+extern "C" int mamba2_scan_f32_bf16bc(
+    const float* x, const float* a, const bf16* b, const bf16* c,
+    const float* s0, float* y, float* sout, float* states, float* decay,
+    float* acum, float* ct, float* gt, int B, int NC, int L, int H, int P,
+    int N, int hb_state, int hb_scan, int smem_prep, int smem_state,
+    int smem_scan, void* stream) {
+  return scan_forward(x, a, b, c, s0, y, sout, states, decay, acum, ct, gt, B,
+                      NC, L, H, P, N, hb_state, hb_scan, smem_prep,
+                      smem_state, smem_scan, stream);
+}
+
+// bf16 everywhere: the Pallas kernel's contract
+extern "C" int mamba2_scan_bf16(
+    const bf16* x, const bf16* a, const bf16* b, const bf16* c,
+    const float* s0, bf16* y, float* sout, float* states, float* decay,
+    float* acum, float* ct, float* gt, int B, int NC, int L, int H, int P,
+    int N, int hb_state, int hb_scan, int smem_prep, int smem_state,
+    int smem_scan, void* stream) {
+  return scan_forward(x, a, b, c, s0, y, sout, states, decay, acum, ct, gt, B,
+                      NC, L, H, P, N, hb_state, hb_scan, smem_prep,
+                      smem_state, smem_scan, stream);
+}
+
+// fp32 everywhere
+extern "C" int mamba2_scan_bwd_f32(
+    const float* x, const float* b, const float* c, const float* y,
+    const float* dy, const float* dfinal, float* dinit, const float* states,
+    const float* acum, const float* decay, const float* gt, float* dstates,
+    float* dg, float* dgsum, float* dx, float* da, float* db, float* dc, int B,
+    int NC, int L, int H, int P, int N, int hb_state, int smem_state,
+    void* stream) {
+  return scan_backward(x, b, c, y, dy, dfinal, dinit, states, acum, decay, gt,
+                       dstates, dg, dgsum, dx, da, db, dc, B, NC, L, H, P, N,
+                       hb_state, smem_state, stream);
+}
+
+// f32 xdt and a_dt, bf16 b and c
+extern "C" int mamba2_scan_bwd_f32_bf16bc(
+    const float* x, const bf16* b, const bf16* c, const float* y,
+    const float* dy, const float* dfinal, float* dinit, const float* states,
+    const float* acum, const float* decay, const float* gt, float* dstates,
+    float* dg, float* dgsum, float* dx, float* da, bf16* db, bf16* dc, int B,
+    int NC, int L, int H, int P, int N, int hb_state, int smem_state,
+    void* stream) {
+  return scan_backward(x, b, c, y, dy, dfinal, dinit, states, acum, decay, gt,
+                       dstates, dg, dgsum, dx, da, db, dc, B, NC, L, H, P, N,
+                       hb_state, smem_state, stream);
+}
+
+// The blocks an SM the runtime grants each launch at its block size and
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), on the
+// current device, into blocks[0..3]: chunk_prep, chunk_state, state_pass,
+// chunk_scan (the fp32 kernels). Returns the first error, or 0.
+extern "C" int mamba2_scan_occupancy(int* blocks) {
+  set_attributes<float, float, float>();
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, chunk_prep_kernel<float, float>, kPrepThreads, kPrepBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 1, chunk_state_kernel<float, float>, kThreads, kPipeBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 2, state_pass_kernel, kPassThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 3, chunk_scan_kernel<float, float>, kThreads, kPipeBytes);
+  return static_cast<int>(err);
 }

@@ -1,4 +1,4 @@
-// Batched paged attention, fp32, for Hopper (sm_90a): kernel B3.
+// Batched paged attention, fp32 and bf16, for Hopper (sm_90a): kernel B3.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::paged_attention
@@ -39,7 +39,35 @@
 // at trash page 0 and slots outside the range hold garbage, and neither is
 // ever loaded. The plan (kernels/paged_attention.py::batched_plan) comes
 // from host-known sizes only, never from context_lens.
+//
+// bf16 (paged_attention_bf16): q, the pools and out in bf16, fp32 math,
+// the pools on the body's widening route (as B1's bf16 launcher), D % 8 ==
+// 0.
 #include "attention_body.cuh"
+
+namespace {
+
+template <typename T>
+int launch_batched(const T* q, const T* k_pages, const T* v_pages,
+                   const int* block_table, const int* context_lens,
+                   const int* q_starts, T* out, float* part_o,
+                   float* part_lse, int B, int Tq, int H, int Hkv, int D,
+                   int page_size, int n_pages, int window, float scale,
+                   int vecs, int n_splits, int split_keys, int smem,
+                   void* stream) {
+  using attn_body::kChunkVecs;
+  const attn_body::Batched lay{context_lens, q_starts, Tq, B};
+  const bool chunks = vecs == kChunkVecs;
+  const int rows = kChunkVecs / (H / Hkv);
+  const int chunk_tiles = chunks ? B * ((Tq + rows - 1) / rows) : 0;
+  return attn_body::launch<T, 16>(
+      q, k_pages, v_pages, nullptr, nullptr, block_table, nullptr, lay, out,
+      part_o, part_lse, H, Hkv, D, page_size, n_pages, window, scale,
+      chunks ? 0 : B, chunks ? 4 : vecs, n_splits, split_keys, chunk_tiles,
+      n_splits, split_keys, smem, smem, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 // Plain C launcher (bound with ctypes). Shapes: q/out (B, Tq, H, D); pools
 // (P, page_size, Hkv, D); block_table (B, n_pages); context_lens and
@@ -57,14 +85,22 @@ extern "C" int paged_attention_f32(
     float* out, float* part_o, float* part_lse, int B, int Tq, int H,
     int Hkv, int D, int page_size, int n_pages, int window, float scale,
     int vecs, int n_splits, int split_keys, int smem, void* stream) {
-  using namespace attn_body;
-  const Batched lay{context_lens, q_starts, Tq, B};
-  const bool chunks = vecs == kChunkVecs;
-  const int rows = kChunkVecs / (H / Hkv);
-  const int chunk_tiles = chunks ? B * ((Tq + rows - 1) / rows) : 0;
-  return launch<float, 16>(
-      q, k_pages, v_pages, nullptr, nullptr, block_table, nullptr, lay, out,
-      part_o, part_lse, H, Hkv, D, page_size, n_pages, window, scale,
-      chunks ? 0 : B, chunks ? 4 : vecs, n_splits, split_keys, chunk_tiles,
-      n_splits, split_keys, smem, smem, static_cast<cudaStream_t>(stream));
+  return launch_batched(q, k_pages, v_pages, block_table, context_lens,
+                        q_starts, out, part_o, part_lse, B, Tq, H, Hkv, D,
+                        page_size, n_pages, window, scale, vecs, n_splits,
+                        split_keys, smem, stream);
+}
+
+// The same over bf16 q, pools and out (D % 8 == 0; the scratch stays f32).
+extern "C" int paged_attention_bf16(
+    const attn_body::bf16* q, const attn_body::bf16* k_pages,
+    const attn_body::bf16* v_pages, const int* block_table,
+    const int* context_lens, const int* q_starts, attn_body::bf16* out,
+    float* part_o, float* part_lse, int B, int Tq, int H, int Hkv, int D,
+    int page_size, int n_pages, int window, float scale, int vecs,
+    int n_splits, int split_keys, int smem, void* stream) {
+  return launch_batched(q, k_pages, v_pages, block_table, context_lens,
+                        q_starts, out, part_o, part_lse, B, Tq, H, Hkv, D,
+                        page_size, n_pages, window, scale, vecs, n_splits,
+                        split_keys, smem, stream);
 }

@@ -1,4 +1,5 @@
-// Token-packed ragged paged attention, fp32, for Hopper (sm_90a): kernel B1.
+// Token-packed ragged paged attention, fp32 and bf16, for Hopper (sm_90a):
+// kernel B1.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py::paged_attention_ragged
@@ -24,6 +25,13 @@
 // each thread computes a 4 x 4 micro-tile of S and a 4 x 16 tile of O. The
 // plan (kernels/paged_attention.py::quant_plan, shared with B2) comes from
 // host-known sizes only. wgmma and TF32 are later work.
+//
+// bf16 (paged_attention_ragged_bf16): q, the pools and out in bf16, the
+// Pallas kernel's contract (fp32 math, out in q's dtype). The pools take
+// the widening route of B2's 1-byte pools (32-key decode sub-tiles,
+// 64-key chunk tiles widened once into fp32 shared memory) with no scales,
+// at half the bytes of an fp32 key; rows move 16 bytes at a time, so D %
+// 8 == 0 (the wrapper checks).
 #include "attention_body.cuh"
 
 // Plain C launcher (bound with ctypes). Shapes: q/out (T, H, D); pools
@@ -45,6 +53,23 @@ extern "C" int paged_attention_ragged_f32(
     void* stream) {
   const attn_body::Ragged lay{context_lens, q_starts, q_lens, pos0, T, S};
   return attn_body::launch<float, 16>(
+      q, k_pages, v_pages, nullptr, nullptr, block_tables, nullptr, lay, out,
+      part_o, part_lse, H, Hkv, D, page_size, n_pages, window, scale, S,
+      dec_vecs, n_splits, split_keys, chunk_tiles, 1, n_pages * page_size,
+      dec_smem, chunk_smem, static_cast<cudaStream_t>(stream));
+}
+
+// The same over bf16 q, pools and out (D % 8 == 0; the scratch stays f32).
+extern "C" int paged_attention_ragged_bf16(
+    const attn_body::bf16* q, const attn_body::bf16* k_pages,
+    const attn_body::bf16* v_pages, const int* block_tables,
+    const int* context_lens, const int* q_starts, const int* q_lens,
+    const int* pos0, attn_body::bf16* out, float* part_o, float* part_lse,
+    int T, int H, int Hkv, int D, int page_size, int S, int n_pages,
+    int window, float scale, int n_splits, int split_keys, int dec_vecs,
+    int chunk_tiles, int dec_smem, int chunk_smem, void* stream) {
+  const attn_body::Ragged lay{context_lens, q_starts, q_lens, pos0, T, S};
+  return attn_body::launch<attn_body::bf16, 16>(
       q, k_pages, v_pages, nullptr, nullptr, block_tables, nullptr, lay, out,
       part_o, part_lse, H, Hkv, D, page_size, n_pages, window, scale, S,
       dec_vecs, n_splits, split_keys, chunk_tiles, 1, n_pages * page_size,

@@ -34,16 +34,20 @@
 // thread. The split size, split count and every grid come from host-known
 // sizes (the wrapper's plan, kernels/paged_attention.py::quant_plan),
 // never from context_lens.
+//
+// q and out may be bf16 (the *_bf16 launchers): the Pallas kernel takes a
+// bf16 q over 1-byte pools and writes the output in q's dtype. q is
+// widened exactly, the math stays fp32, the output is rounded once.
 #include <type_traits>
 
 #include "attention_body.cuh"
 
 namespace {
 
-template <typename T>
-int launch(const float* q, const T* kp, const T* vp, const float* ks,
+template <typename T, typename QT>
+int launch(const QT* q, const T* kp, const T* vp, const float* ks,
            const float* vs, const int* bt, const int* st, const int* ctx,
-           const int* qs, const int* ql, const int* p0, float* out,
+           const int* qs, const int* ql, const int* p0, QT* out,
            float* part_o, float* part_lse, int T_rows, int H, int Hkv, int D,
            int page, int S, int n_pages, int window, float scale,
            int n_splits, int split_keys, int dec_vecs, int chunk_tiles,
@@ -66,8 +70,8 @@ int launch(const float* q, const T* kp, const T* vp, const float* ks,
 
 }  // namespace
 
-// Plain C launchers (bound with ctypes), one per value type. Shapes: q/out
-// (T, H, D) f32; k_pages/v_pages (P, page_size, Hkv, D) int8 or fp8-e4m3;
+// Plain C launchers (bound with ctypes), one per value type and q type.
+// Shapes: q/out (T, H, D) f32 or bf16; k_pages/v_pages (P, page_size, Hkv, D) int8 or fp8-e4m3;
 // k_scales/v_scales (Ps, page_size, Hkv) f32; block_tables and
 // scale_tables (S, n_pages); the four (S,) int32 arrays; f32 scratch
 // part_o (S, n_splits, Hkv, dec_vecs, D) and part_lse (S, n_splits, Hkv,
@@ -77,6 +81,7 @@ int launch(const float* q, const T* kp, const T* vp, const float* ks,
 // H % Hkv == 0 and 16 % (H / Hkv) == 0, that q and out are 16-byte and the
 // value pools 4-byte aligned, and that the grids fit. Return the first
 // cudaError_t of the three launches, or 0.
+// int8 values, f32 q and out
 extern "C" int paged_attention_ragged_quant_i8(
     const float* q, const int8_t* k_pages, const int8_t* v_pages,
     const float* k_scales, const float* v_scales, const int* block_tables,
@@ -86,27 +91,60 @@ extern "C" int paged_attention_ragged_quant_i8(
     int n_pages, int window, float scale, int n_splits, int split_keys,
     int dec_vecs, int chunk_tiles, int dec_smem, int chunk_smem,
     void* stream) {
-  return launch<int8_t>(q, k_pages, v_pages, k_scales, v_scales,
-                        block_tables, scale_tables, context_lens, q_starts,
-                        q_lens, pos0, out, part_o, part_lse, T, H, Hkv, D,
-                        page_size, S, n_pages, window, scale, n_splits,
-                        split_keys, dec_vecs, chunk_tiles, dec_smem,
-                        chunk_smem, stream);
+  return launch<int8_t>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables,
+      scale_tables, context_lens, q_starts, q_lens, pos0, out, part_o,
+      part_lse, T, H, Hkv, D, page_size, S, n_pages, window, scale, n_splits,
+      split_keys, dec_vecs, chunk_tiles, dec_smem, chunk_smem, stream);
 }
 
+// fp8-e4m3 values, f32 q and out
 extern "C" int paged_attention_ragged_quant_f8(
-    const float* q, const __nv_fp8_e4m3* k_pages,
-    const __nv_fp8_e4m3* v_pages, const float* k_scales,
-    const float* v_scales, const int* block_tables, const int* scale_tables,
-    const int* context_lens, const int* q_starts, const int* q_lens,
-    const int* pos0, float* out, float* part_o, float* part_lse, int T,
-    int H, int Hkv, int D, int page_size, int S, int n_pages, int window,
-    float scale, int n_splits, int split_keys, int dec_vecs,
-    int chunk_tiles, int dec_smem, int chunk_smem, void* stream) {
-  return launch<__nv_fp8_e4m3>(q, k_pages, v_pages, k_scales, v_scales,
-                               block_tables, scale_tables, context_lens,
-                               q_starts, q_lens, pos0, out, part_o, part_lse,
-                               T, H, Hkv, D, page_size, S, n_pages, window,
-                               scale, n_splits, split_keys, dec_vecs,
-                               chunk_tiles, dec_smem, chunk_smem, stream);
+    const float* q, const __nv_fp8_e4m3* k_pages, const __nv_fp8_e4m3* v_pages,
+    const float* k_scales, const float* v_scales, const int* block_tables,
+    const int* scale_tables, const int* context_lens, const int* q_starts,
+    const int* q_lens, const int* pos0, float* out, float* part_o,
+    float* part_lse, int T, int H, int Hkv, int D, int page_size, int S,
+    int n_pages, int window, float scale, int n_splits, int split_keys,
+    int dec_vecs, int chunk_tiles, int dec_smem, int chunk_smem,
+    void* stream) {
+  return launch<__nv_fp8_e4m3>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables,
+      scale_tables, context_lens, q_starts, q_lens, pos0, out, part_o,
+      part_lse, T, H, Hkv, D, page_size, S, n_pages, window, scale, n_splits,
+      split_keys, dec_vecs, chunk_tiles, dec_smem, chunk_smem, stream);
+}
+
+// int8 values, bf16 q and out
+extern "C" int paged_attention_ragged_quant_i8_bf16(
+    const attn_body::bf16* q, const int8_t* k_pages, const int8_t* v_pages,
+    const float* k_scales, const float* v_scales, const int* block_tables,
+    const int* scale_tables, const int* context_lens, const int* q_starts,
+    const int* q_lens, const int* pos0, attn_body::bf16* out, float* part_o,
+    float* part_lse, int T, int H, int Hkv, int D, int page_size, int S,
+    int n_pages, int window, float scale, int n_splits, int split_keys,
+    int dec_vecs, int chunk_tiles, int dec_smem, int chunk_smem,
+    void* stream) {
+  return launch<int8_t>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables,
+      scale_tables, context_lens, q_starts, q_lens, pos0, out, part_o,
+      part_lse, T, H, Hkv, D, page_size, S, n_pages, window, scale, n_splits,
+      split_keys, dec_vecs, chunk_tiles, dec_smem, chunk_smem, stream);
+}
+
+// fp8-e4m3 values, bf16 q and out
+extern "C" int paged_attention_ragged_quant_f8_bf16(
+    const attn_body::bf16* q, const __nv_fp8_e4m3* k_pages, const __nv_fp8_e4m3* v_pages,
+    const float* k_scales, const float* v_scales, const int* block_tables,
+    const int* scale_tables, const int* context_lens, const int* q_starts,
+    const int* q_lens, const int* pos0, attn_body::bf16* out, float* part_o,
+    float* part_lse, int T, int H, int Hkv, int D, int page_size, int S,
+    int n_pages, int window, float scale, int n_splits, int split_keys,
+    int dec_vecs, int chunk_tiles, int dec_smem, int chunk_smem,
+    void* stream) {
+  return launch<__nv_fp8_e4m3>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables,
+      scale_tables, context_lens, q_starts, q_lens, pos0, out, part_o,
+      part_lse, T, H, Hkv, D, page_size, S, n_pages, window, scale, n_splits,
+      split_keys, dec_vecs, chunk_tiles, dec_smem, chunk_smem, stream);
 }

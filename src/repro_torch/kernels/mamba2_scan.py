@@ -14,6 +14,14 @@ one in the model's (B, H, P, N) convention — what the model's
 ``ssd_chunked`` computes — where the TPU kernel starts from zeros and
 returns (B, H, N, P).
 
+dtypes, as the Pallas kernel and the model's ``ssd_chunked`` take them:
+all fp32; fp32 xdt and a_dt with bf16 b and c and fp32 y (the model's at
+bf16 compute: ``ssd_chunked`` forms x·dt in fp32 and returns fp32 y); or
+all bf16 with y in bf16 (the Pallas kernel's contract, forward only). The
+initial and final states and all scratch are fp32; bf16 is widened
+exactly in the kernel and y rounded once. Any other combination raises
+``TypeError``.
+
 Tensors on the CPU take the plain version (``ref.mamba_chunk_scan_ref``);
 tensors on a CUDA device launch the kernel or raise — there is no
 fallback. ``mamba_chunk_scan.launches`` counts the kernel's calls (one per
@@ -23,7 +31,9 @@ call, whose four launches run on the current stream), and nothing else.
 ``ssd_chunked`` (the JAX package has no Pallas backward: its training
 differentiates that einsum), five more launches of the same source from
 the carried states, acum, decay and Gᵀ the forward left in its scratch;
-``ref.mamba_chunk_scan_backward_ref`` on the CPU.
+``ref.mamba_chunk_scan_backward_ref`` on the CPU. It reads y's gradient
+and y in fp32, takes fp32 xdt and a_dt with b and c in fp32 or bf16, and
+writes each input's gradient in that input's dtype.
 ``mamba_chunk_scan_backward.launches`` counts its calls. ``MambaChunkScan``
 is the ``torch.autograd.Function`` of the two, the way the model reaches
 B5 (``ops.mamba_chunk_scan_op``).
@@ -40,11 +50,18 @@ import torch
 from . import _build, ref
 from .moe_gmm import H100_SMS
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+# the launchers by (xdt and a_dt, b and c[, y]) dtype
+_FORWARD = {(_F32, _F32, _F32): "mamba2_scan_f32",
+            (_F32, _BF16, _F32): "mamba2_scan_f32_bf16bc",
+            (_BF16, _BF16, _BF16): "mamba2_scan_bf16"}
+_BACKWARD = {(_F32, _F32): "mamba2_scan_bwd_f32",
+             (_F32, _BF16): "mamba2_scan_bwd_f32_bf16bc"}
 # argtypes of every extern "C" function, by symbol
-_SIG = {"mamba2_scan_f32": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
-        + [ctypes.c_void_p],
-        "mamba2_scan_bwd_f32": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
-        + [ctypes.c_void_p],
+_SIG = {**{k: [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+           + [ctypes.c_void_p] for k in _FORWARD.values()},
+        **{k: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+           + [ctypes.c_void_p] for k in _BACKWARD.values()},
         "mamba2_scan_occupancy": [ctypes.c_void_p]}
 MAX_L, MAX_N, MAX_P = 128, 128, 64     # the kernel's shared-memory tiles
 _GRID_YZ = 65535                       # gridDim.y (chunks), gridDim.z (batch)
@@ -151,7 +168,10 @@ def occupancy(device=None) -> dict:
 def _check(xdt, a_dt, b, c, init_state) -> None:
     """Raise on what the kernel does not take: xdt (B, NC, L, H, P), a_dt
     (B, NC, L, H), b and c (B, NC, L, N), init_state (B, H, P, N) or None;
-    float32, contiguous, 16-byte aligned, on one device; 1 <= L <= 128,
+    xdt and a_dt float32 or bfloat16 alike, b and c float32 or bfloat16
+    alike and bf16 where xdt is, init_state float32 (``TypeError``
+    otherwise; which y and which backward each takes: ``_FORWARD``,
+    ``_BACKWARD``); contiguous, 16-byte aligned, on one device; 1 <= L <= 128,
     N in 4..128 and P in 4..64, both multiples of 4 (mamba2-1.3b: L 128,
     N 128, P 64; its reduced config: N 16, P 16); B and NC in 1..65535,
     H at least 1."""
@@ -161,14 +181,22 @@ def _check(xdt, a_dt, b, c, init_state) -> None:
     for name, t, rank in named:
         if t.device != xdt.device:
             raise ValueError(f"{name} is on {t.device}, xdt on {xdt.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.dim() != rank:
             raise ValueError(f"{name} must be {rank}-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if ((xdt.dtype, b.dtype) not in {k[:2] for k in _FORWARD}
+            or a_dt.dtype != xdt.dtype
+            or c.dtype != b.dtype
+            or (init_state is not None and init_state.dtype != _F32)):
+        raise TypeError(
+            f"B5 takes xdt and a_dt float32 or bfloat16 alike, b and c "
+            f"likewise (bf16 where xdt is), a float32 initial state; got "
+            f"{xdt.dtype}, {a_dt.dtype}, {b.dtype}, {c.dtype}, "
+            f"{None if init_state is None else init_state.dtype} "
+            f"(fp16: ROADMAP B6)")
     bsz, nc, l, h, p = xdt.shape
     n = b.shape[-1]
     if tuple(a_dt.shape) != (bsz, nc, l, h):
@@ -193,30 +221,38 @@ def _check(xdt, a_dt, b, c, init_state) -> None:
 
 
 def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
-                     c: torch.Tensor, init_state: Optional[torch.Tensor] = None
+                     c: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+                     y_dtype: Optional[torch.dtype] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD chunk scan. xdt (B, NC, L, H, P), a_dt (B, NC, L, H), b and c
     (B, NC, L, N), init_state (B, H, P, N) or None (zeros) → (y (B, NC, L,
-    H, P), final state (B, H, P, N)), fp32. No autograd graph: the model
-    differentiates it through ``MambaChunkScan``."""
+    H, P) in ``y_dtype`` (xdt's if None), final state (B, H, P, N) fp32).
+    No autograd graph: the model differentiates it through
+    ``MambaChunkScan``."""
     if xdt.device.type == "cpu":
-        return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state)
-    y, state, _ = _launch(xdt, a_dt, b, c, init_state)
+        return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state, y_dtype)
+    y, state, _ = _launch(xdt, a_dt, b, c, init_state, y_dtype)
     return y, state
 
 
-def _launch(xdt, a_dt, b, c, init_state):
+def _launch(xdt, a_dt, b, c, init_state, y_dtype=None):
     """B5 on a CUDA device: (y, final state, the scratch by name — states
     (B, NC, H, N, P) now the carried ones, acum, decay, ct, gt — that the
     backward reads)."""
     if xdt.device.type != "cuda":
         raise ValueError(f"no mamba_chunk_scan for {xdt.device}")
     _check(xdt, a_dt, b, c, init_state)
+    y_dtype = xdt.dtype if y_dtype is None else y_dtype
+    symbol = _FORWARD.get((xdt.dtype, b.dtype, y_dtype))
+    if symbol is None:
+        raise TypeError(f"no B5 for {xdt.dtype} xdt with y in {y_dtype}: "
+                        f"y is float32 from float32 xdt, or bfloat16 from "
+                        f"bfloat16 inputs")
     bsz, nc, l, h, p = xdt.shape
     n = b.shape[-1]
     dev = xdt.device
     plan = scan_plan(bsz, nc, l, h, p, n)
-    y = torch.empty_like(xdt)
+    y = torch.empty_like(xdt, dtype=y_dtype)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     # one scratch buffer, cut in the launcher's order: states (each chunk's
     # own state, then the state carried into it), acum, Cᵀ, Gᵀ, decay
@@ -226,7 +262,7 @@ def _launch(xdt, a_dt, b, c, init_state):
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     scratch = {k: t.view(plan.scratch[k])
                for k, t in zip(order, flat.split(sizes))}
-    fn = _function("mamba2_scan_f32")
+    fn = _function(symbol)
     s0 = None if init_state is None else init_state.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -249,12 +285,13 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
                               saved, needs):
     """B5's backward: the gradients (dxdt, da_dt, db, dc, dinit) of
     ``mamba_chunk_scan(xdt, a_dt, b, c, init_state)`` for y's gradient
-    ``dy`` and the final state's ``dfinal`` (either None: zeros), each
-    None where ``needs`` (five flags, the inputs' order) says it is not
-    wanted. ``saved``: on a CUDA device the forward's y and its scratch
-    (``_launch``), unused on the CPU, where the plain version runs."""
+    ``dy`` and the final state's ``dfinal`` (either None: zeros; both
+    fp32), each None where ``needs`` (five flags, the inputs' order) says
+    it is not wanted, each in its input's dtype. ``saved``: on a CUDA
+    device the forward's y (fp32) and its scratch (``_launch``), unused on
+    the CPU, where the plain version runs."""
     if dy is None:
-        dy = torch.zeros_like(xdt)
+        dy = torch.zeros(xdt.shape, dtype=torch.float32, device=xdt.device)
     if xdt.device.type == "cpu":
         grads = ref.mamba_chunk_scan_backward_ref(xdt, a_dt, b, c,
                                                   init_state, dy, dfinal)
@@ -262,6 +299,10 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
     if xdt.device.type != "cuda":
         raise ValueError(f"no mamba_chunk_scan_backward for {xdt.device}")
     _check(xdt, a_dt, b, c, init_state)
+    symbol = _BACKWARD.get((xdt.dtype, b.dtype))
+    if symbol is None:
+        raise TypeError(f"B5's backward takes float32 xdt and a_dt, got "
+                        f"{xdt.dtype}")
     dy = dy.contiguous()
     if dy.data_ptr() % 16:     # launch 1 copies dY's rows 16 bytes at a time
         dy = dy.clone()
@@ -277,6 +318,8 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
                              f"{xdt.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     y, scratch = saved
+    if y.dtype != torch.float32:
+        raise TypeError(f"B5's backward reads y in float32, got {y.dtype}")
     dev = xdt.device
     plan = scan_plan(bsz, nc, l, h, p, n)
     dx, da = torch.empty_like(xdt), torch.empty_like(a_dt)
@@ -291,7 +334,7 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
     work = dict(zip(shapes, torch.empty(sum(sizes), dtype=torch.float32,
                                         device=dev).split(sizes)))
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _function("mamba2_scan_bwd_f32")
+    fn = _function(symbol)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(xdt.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
@@ -317,15 +360,24 @@ class MambaChunkScan(torch.autograd.Function):
     """``mamba_chunk_scan`` with its backward on ``mamba_chunk_scan_backward``
     (one call, one launch count, a backward pass). On the CPU the forward
     is ``ref.mamba_chunk_scan_ref`` and the backward
-    ``ref.mamba_chunk_scan_backward_ref``."""
+    ``ref.mamba_chunk_scan_backward_ref``. On the card a forward that may
+    be differentiated takes fp32 xdt and a_dt and writes y in fp32, which
+    the backward reads (``_BACKWARD``: the model's dtypes)."""
 
     @staticmethod
-    def forward(ctx, xdt, a_dt, b, c, init_state):
+    def forward(ctx, xdt, a_dt, b, c, init_state, y_dtype=None):
         ctx.set_materialize_grads(False)
         if xdt.device.type == "cpu":
             ctx.save_for_backward(xdt, a_dt, b, c, init_state)
-            return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state)
-        y, state, scratch = _launch(xdt, a_dt, b, c, init_state)
+            return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state,
+                                            y_dtype)
+        if any(ctx.needs_input_grad[:5]) and (
+                (xdt.dtype, b.dtype) not in _BACKWARD
+                or (y_dtype or xdt.dtype) != torch.float32):
+            raise TypeError(f"B5's backward takes float32 xdt and a_dt and "
+                            f"reads y in float32: got {xdt.dtype} xdt, y in "
+                            f"{y_dtype or xdt.dtype}")
+        y, state, scratch = _launch(xdt, a_dt, b, c, init_state, y_dtype)
         ctx.save_for_backward(xdt, a_dt, b, c, init_state, y,
                               *(scratch[k] for k in ("states", "acum",
                                                      "decay", "gt")))
@@ -339,6 +391,7 @@ class MambaChunkScan(torch.autograd.Function):
             y, states, acum, decay, gt = rest
             saved = (y, {"states": states, "acum": acum, "decay": decay,
                          "gt": gt})
-        return mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy,
-                                         dfinal, saved,
-                                         ctx.needs_input_grad)
+        grads = mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy,
+                                          dfinal, saved,
+                                          ctx.needs_input_grad[:5])
+        return (*grads, None)

@@ -10,15 +10,21 @@ its design differs from the TPU grid; it masks the ragged edges, so the
 split K at decode capacities), row tile and split count from the shapes
 alone.
 
-Tensors on the CPU take the plain version (``ref.moe_gmm_ref``); tensors on
-a CUDA device launch the kernel or raise — there is no fallback.
+x and w are both fp32 or both bf16, the output in x's dtype with fp32
+accumulation, as the Pallas kernel computes it; any other dtype, or a
+mix, raises ``TypeError`` (the models cast per ``jnp``'s promotion before
+the call, ``models/moe.py``). Tensors on the CPU take the plain version
+(``ref.moe_gmm_ref``); tensors on a CUDA device launch the kernel or
+raise — there is no fallback.
 ``moe_gmm.launches`` counts the kernel's calls (one per call, whose one or
 two launches — the GEMM and, with split K, the sum of the parts — run on
 the current stream), and nothing else.
 
 ``MoeGmm`` is the differentiable form, a ``torch.autograd.Function`` whose
 backward is B4 again: dx = dy · wᵀ as (E, C, N) · (E, N, K) and dw = xᵀ ·
-dy as (E, K, C) · (E, C, N), the capacity C the contraction. The
+dy as (E, K, C) · (E, C, N), the capacity C the contraction, in the
+operands' dtype (a bf16 forward gets a bf16 ``dy``; bf16 then needs C
+even too, which the capacities, multiples of 4, are). The
 transposes are contiguous copies made for the call (one mixtral-8x7b
 w_gate or w_up transposed is 1.88 GB, freed when the call returns). On
 the CPU the same Function runs over the plain version, so autograd
@@ -37,8 +43,10 @@ import torch
 from . import _build, ref
 
 # argtypes of every extern "C" launcher, by symbol
-_SIG = {"moe_gmm_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-        + [ctypes.c_void_p]}
+_SIG = {f"moe_gmm_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p] for t in ("f32", "bf16")}
+# the operands' dtypes, with their launcher suffix
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 GRID_X = 2 ** 31 - 1          # gridDim.x: row tiles
 GRID_YZ = 65535               # gridDim.y: column tiles; gridDim.z: E x parts
 BN = 128                      # output columns a block
@@ -46,6 +54,7 @@ TILE_ROWS = (128, 64, 32)     # the tile body's row tiles (C > STREAM_MAX_C)
 STREAM_ROWS = (4, 8, 16, 20, 32)   # the stream body's row tiles
 STREAM_MAX_C = 32
 STAGES, TILE_BK, STREAM_BK = 4, 16, 32
+TILE_X_PAD = 8                # bf16 tile body: x's slab rows are 16 + 8
 STREAM_THREADS = 128
 MAX_PARTS = 8
 WAVES = 4                     # the stream body splits K up to this many waves
@@ -73,9 +82,10 @@ def _padded(c: int, rows: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def gmm_plan(e: int, c: int, k: int, n: int, sms: int = H100_SMS) -> GmmPlan:
-    """The body, row tile and split count for x (E, C, K) @ w (E, K, N) on
-    a card of ``sms`` SMs. C > 32 takes the tile body (2 x BM threads)
+def gmm_plan(e: int, c: int, k: int, n: int, sms: int = H100_SMS,
+             elem: int = 4) -> GmmPlan:
+    """The body, row tile and split count for x (E, C, K) @ w (E, K, N) of
+    ``elem``-byte values (4: fp32, 2: bf16) on a card of ``sms`` SMs. C > 32 takes the tile body (2 x BM threads)
     with the row tile that pads C least (the larger on a tie: 160 → 32,
     640 → 128, 960 → 64). C <= 32 takes the stream body with the first row tile at or past
     C; when its E x column-tile blocks fill under WAVES waves of the card,
@@ -85,11 +95,13 @@ def gmm_plan(e: int, c: int, k: int, n: int, sms: int = H100_SMS) -> GmmPlan:
     col_tiles = -(-n // BN)
     if c > STREAM_MAX_C:
         rows = min(TILE_ROWS, key=lambda r: (_padded(c, r), -r))
-        smem = STAGES * (TILE_BK * (rows + 4) + TILE_BK * BN) * 4
+        smem = STAGES * (TILE_BK * (rows + 4) + TILE_BK * BN) * 4 \
+            if elem == 4 else \
+            STAGES * (rows * (TILE_BK + TILE_X_PAD) + TILE_BK * BN) * elem
         return GmmPlan("tile", rows, 1, (-(-c // rows), col_tiles, e),
                        2 * rows, smem, None)
     rows = next(r for r in STREAM_ROWS if r >= c)
-    smem = STAGES * (rows * STREAM_BK + STREAM_BK * BN) * 4
+    smem = STAGES * (rows * STREAM_BK + STREAM_BK * BN) * elem
     per_sm = max(1, min(65536 // (STREAM_THREADS * 128),
                         SMEM_PER_SM // (smem + 1024)))
     wave = sms * per_sm
@@ -109,10 +121,11 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launcher():
-    fn = _build.load("moe_gmm").moe_gmm_f32
+def _launcher(dtype: torch.dtype):
+    symbol = f"moe_gmm_{_SUFFIX[dtype]}"
+    fn = getattr(_build.load("moe_gmm"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _SIG["moe_gmm_f32"]
+        fn.argtypes = _SIG[symbol]
         fn.restype = ctypes.c_int
     return fn
 
@@ -120,19 +133,23 @@ def _launcher():
 def _check(x: torch.Tensor, w: torch.Tensor,
            sms: int = H100_SMS) -> GmmPlan:
     """Raise on what the kernel does not take: x (E, C, K) and w (E, K, N),
-    float32, contiguous, on one device, C, K and N int32, and a plan whose
-    grid fits CUDA's limits (column tiles and E x parts at most 65535).
-    Returns the plan."""
+    both float32 or both bfloat16 (``TypeError`` otherwise), contiguous,
+    on one device, C, K and N int32 (K and N even in bf16: a copy moves
+    at least 4 bytes), and a plan whose grid fits CUDA's limits (column
+    tiles and E x parts at most 65535). Returns the plan."""
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} "
-                            "(bf16 is later work)")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype} (fp16: ROADMAP B6)")
         if t.dim() != 3:
             raise ValueError(f"{name} must be 3-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if w.dtype != x.dtype:
+        raise TypeError(f"x is {x.dtype}, w {w.dtype}: B4 takes both "
+                        "alike (cast as jnp's promotion does)")
     e, c, k = x.shape
     if w.shape[0] != e or w.shape[1] != k:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)}: "
@@ -140,7 +157,9 @@ def _check(x: torch.Tensor, w: torch.Tensor,
     n = w.shape[2]
     if max(c, k, n) >= 2 ** 31:
         raise ValueError("C, K and N must fit in an int32")
-    plan = gmm_plan(e, c, k, n, sms)
+    if x.dtype == torch.bfloat16 and (k % 2 or n % 2):
+        raise ValueError(f"K={k}, N={n}: bf16 takes K and N even")
+    plan = gmm_plan(e, c, k, n, sms, x.element_size())
     gx, gy, gz = plan.grid
     if gx > GRID_X or gy > GRID_YZ or gz > GRID_YZ:
         raise ValueError(f"E={e}, C={c}, N={n}: grid {plan.grid} is past "
@@ -149,8 +168,8 @@ def _check(x: torch.Tensor, w: torch.Tensor,
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, C, K) @ w (E, K, N) → (E, C, N), one GEMM per expert, fp32
-    accumulation."""
+    """x (E, C, K) @ w (E, K, N) → (E, C, N) in x's dtype, one GEMM per
+    expert, fp32 accumulation; x and w fp32 or bf16, alike."""
     if x.device.type == "cpu":
         return ref.moe_gmm_ref(x, w)
     if x.device.type != "cuda":
@@ -159,7 +178,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                              else torch.cuda.current_device()))
     e, c, k = x.shape
     n = w.shape[2]
-    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     if k == 0:
@@ -167,7 +186,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     scratch = (None if plan.scratch is None else
                torch.empty(plan.scratch, dtype=torch.float32,
                            device=x.device))
-    fn = _launcher()
+    fn = _launcher(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),

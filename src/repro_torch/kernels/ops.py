@@ -83,16 +83,16 @@ def moe_gmm_op(x, w):
     return MoeGmm.apply(x, w)
 
 
-def mamba_chunk_scan_op(xdt, a_dt, b, c, init_state=None):
+def mamba_chunk_scan_op(xdt, a_dt, b, c, init_state=None, y_dtype=None):
     """SSD chunk scan over pre-chunked inputs (kernel B5): xdt (B, NC, L,
     H, P), a_dt (B, NC, L, H), b and c (B, NC, L, N), init_state (B, H, P,
-    N) or None for zeros. Returns (y (B, NC, L, H, P), the final state
-    (B, H, P, N), the model convention), what the model's ``ssd_chunked``
-    computes. The inputs are made contiguous here (``b`` and ``c`` are
+    N) or None for zeros. Returns (y (B, NC, L, H, P) in ``y_dtype``
+    (xdt's if None), the final state (B, H, P, N) fp32, the model
+    convention), what the model's ``ssd_chunked`` computes. The inputs are made contiguous here (``b`` and ``c`` are
     split views of the conv output); unlike the TPU op this one takes an
     initial state, which ``mamba_seq`` seeds from its cache.
     Differentiable (``MambaChunkScan``: its backward is B5's backward
     kernel); without grad it is one ``mamba_chunk_scan`` launch."""
     return MambaChunkScan.apply(
         xdt.contiguous(), a_dt.contiguous(), b.contiguous(), c.contiguous(),
-        None if init_state is None else init_state.contiguous())
+        None if init_state is None else init_state.contiguous(), y_dtype)

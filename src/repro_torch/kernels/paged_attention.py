@@ -17,8 +17,11 @@
 
 All three are CUDA C++ for sm_90a, built by ``_build``, on one body
 (``csrc/attention_body.cuh``): split-KV decode tiles merged by a second
-launch and register-tiled chunk tiles, over fp32 or 1-byte pools, in the
-ragged (B1, B2) or batched (B3) layout. ``quant_plan`` lays out a ragged
+launch and register-tiled chunk tiles, over fp32, bf16 or 1-byte pools, in
+the ragged (B1, B2) or batched (B3) layout. q and the output are fp32 or
+bf16, as the Pallas kernels take them: B1 and B3 take fp32 or bf16 q with
+pools of q's dtype, B2 either q over its 1-byte pools; the math is fp32
+and a bf16 output is rounded once. Any other dtype raises ``TypeError``. ``quant_plan`` lays out a ragged
 call, ``batched_plan`` a batched one, ``body_smem`` states the shared
 memory of the body's kernels. The sources note what bounds them on the
 H100 and how their design differs from the TPU grid.
@@ -47,12 +50,16 @@ _RAGGED = [ctypes.c_void_p] * 11 + _TAIL + [ctypes.c_int] * 6 + [
 _QUANT = [ctypes.c_void_p] * 14 + _TAIL + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
 # argtypes of every extern "C" launcher, by symbol
+_BATCHED = [ctypes.c_void_p] * 9 + _TAIL + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
 _SIG = {"paged_attention_ragged_f32": _RAGGED,
-        "paged_attention_f32": ([ctypes.c_void_p] * 9 + _TAIL
-                                + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-        "paged_attention_ragged_quant_i8": _QUANT,
-        "paged_attention_ragged_quant_f8": _QUANT}
-# B2's launcher suffix by value dtype
+        "paged_attention_ragged_bf16": _RAGGED,
+        "paged_attention_f32": _BATCHED, "paged_attention_bf16": _BATCHED,
+        **{f"paged_attention_ragged_quant_{v}{q}": _QUANT
+           for v in ("i8", "f8") for q in ("", "_bf16")}}
+# the dtypes of q (and of B1's and B3's pools), with their launcher suffix
+_Q_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# B2's launcher suffix by value dtype (then "_bf16" for a bf16 q)
 _QUANT_SUFFIX = {torch.int8: "i8", torch.float8_e4m3fn: "f8"}
 # The body's tiles (csrc/attention_body.cuh). Ragged: a sequence whose
 # rows x G fit max(MIN_DECODE_VECS, G) query vectors is one split-KV decode
@@ -79,18 +86,19 @@ CHUNK_WAVES = 2
 def body_smem(d: int, elem: int, ch: int, vecs: int) -> tuple[int, int]:
     """Dynamic shared memory (bytes) of the body's decode_split_kernel for
     ``vecs``-vector tiles and of its chunk_tile_kernel, over pools of
-    ``elem``-byte values (4: fp32; 1: int8 or fp8-e4m3) copied ``ch`` bytes
-    at a time: ``decode_smem`` and ``chunk_smem`` of
-    csrc/attention_body.cuh, which refuses a launch whose plan states
-    other sizes."""
-    quant = elem == 1
-    sub, keys = (32, 64) if quant else (16, 32)   # kSubKeys, kChunkKeys
+    ``elem``-byte values (4: fp32; 2: bf16; 1: int8 or fp8-e4m3, with
+    scales) copied ``ch`` bytes at a time: ``decode_smem`` and
+    ``chunk_smem`` of csrc/attention_body.cuh, which refuses a launch whose
+    plan states other sizes. bf16 and 1-byte values are widened after the
+    copy (kWide); only 1-byte values carry scales (kScaled)."""
+    wide, scaled = elem != 4, elem == 1
+    sub, keys = (32, 64) if wide else (16, 32)    # kSubKeys, kChunkKeys
     rs = ((d * elem // ch) | 1) * ch               # row_stride
     st4 = ((d // 4) | 1) * 16                      # a widened row
-    stage = lambda nk: nk * (2 * rs + (8 if quant else 0))
+    stage = lambda nk: nk * (2 * rs + (8 if scaled else 0))
     dec = (vecs * d * 4 + WARPS * vecs * sub * 4 + 2 * WARPS * vecs * 4
            + WARPS * 2 * stage(sub))
-    chunk = CHUNK_VECS * d * 4 + (2 * keys * st4 + stage(keys) if quant
+    chunk = CHUNK_VECS * d * 4 + (2 * keys * st4 + stage(keys) if wide
                                   else 2 * 2 * keys * st4)
     return dec, chunk
 
@@ -163,9 +171,10 @@ class BatchedPlan:
 
 @functools.lru_cache(maxsize=256)
 def batched_plan(b: int, tq: int, n_keys: int, h: int, hkv: int, d: int,
-                 sms: int = H100_SMS) -> BatchedPlan:
+                 sms: int = H100_SMS, elem: int = 4) -> BatchedPlan:
     """B3's layout for q (B, Tq, H, D) over tables of ``n_keys`` keys on a
-    card of ``sms`` SMs. Tq x G <= 16: decode tiles of Tq x G vectors
+    card of ``sms`` SMs, pools of ``elem``-byte values (4: fp32, 2: bf16;
+    the shared memory, and so the blocks an SM, follow it). Tq x G <= 16: decode tiles of Tq x G vectors
     rounded up to 4, 8 or 16, their keys split as ``_splits`` says (the
     same splits as B1's for a table of the same width), then merged. Else
     chunk tiles of 64 vectors, a sequence's Tq rows cut into
@@ -178,14 +187,14 @@ def batched_plan(b: int, tq: int, n_keys: int, h: int, hkv: int, d: int,
     if tq * g <= MAX_DECODE_VECS:
         vecs = next(v for v in DECODE_VECS if v >= tq * g)
         split_keys, n_splits = _splits(n_keys)
-        smem = body_smem(d, 4, 16, vecs)[0]
+        smem = body_smem(d, elem, 16, vecs)[0]
         return BatchedPlan(vecs, tq, b, split_keys, n_splits,
                            b * n_splits * hkv, b * hkv,
                            (b, n_splits, hkv, vecs, d),
                            (b, n_splits, hkv, vecs), smem)
     rows = CHUNK_VECS // g
     tiles = b * -(-tq // rows)
-    smem = body_smem(d, 4, 16, MIN_DECODE_VECS)[1]
+    smem = body_smem(d, elem, 16, MIN_DECODE_VECS)[1]
     per_sm = min(CHUNK_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_PER_BLOCK))
     want = -(-CHUNK_WAVES * sms * per_sm // (tiles * hkv))
     n_splits = max(1, min(want, MAX_SPLITS,
@@ -221,7 +230,7 @@ def _scratch(q, part_out, part_lse):
             torch.empty(part_lse, dtype=torch.float32, device=q.device))
 
 
-def _launcher(name: str, suffix: str = "f32"):
+def _launcher(name: str, suffix: str):
     symbol = f"{name}_{suffix}"
     fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
@@ -233,9 +242,12 @@ def _launcher(name: str, suffix: str = "f32"):
 def _check(q, k_pages, v_pages, block_tables, meta, *,
            batched: bool = False, scales: Optional[dict] = None) -> None:
     """Raise on what the kernel does not take: the ragged kernel's q is
-    (T, H, D), the batched one's (B, Tq, H, D) with B = len(block_tables).
-    ``scales`` (quantized pools: k_scales, v_scales, scale_tables) makes
-    the pools int8 or fp8-e4m3, 4-byte aligned, instead of float32."""
+    (T, H, D), the batched one's (B, Tq, H, D) with B = len(block_tables);
+    q float32 or bfloat16 (``TypeError`` for any other dtype). Without
+    ``scales`` both pools have q's dtype; bf16 rows move 16 bytes at a
+    time, so bf16 pools need D % 8 == 0. ``scales`` (quantized pools:
+    k_scales, v_scales, scale_tables) makes the pools int8 or fp8-e4m3,
+    4-byte aligned."""
     dev = q.device
     named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
              ("block_tables", block_tables), *meta.items(),
@@ -245,12 +257,12 @@ def _check(q, k_pages, v_pages, block_tables, meta, *,
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype} "
-                        "(bf16 activations are later work)")
-    if q.data_ptr() % 16:       # the kernel moves rows as float4
+    if q.dtype not in _Q_SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype} "
+                        "(fp16: ROADMAP B6)")
+    if q.data_ptr() % 16:       # the kernel moves q 16 or 8 bytes at a time
         raise ValueError("q must be 16-byte aligned")
-    pool_types = (torch.float32,) if scales is None else tuple(_QUANT_SUFFIX)
+    pool_types = (q.dtype,) if scales is None else tuple(_QUANT_SUFFIX)
     # a quantized row of D % 4 == 0 bytes moves as 4-byte groups
     align = 16 if scales is None else 4
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -279,6 +291,9 @@ def _check(q, k_pages, v_pages, block_tables, meta, *,
     if dk != d or d % 4 or d > 128:
         raise ValueError(f"head_dim {d} (pools {dk}): the kernel takes "
                          "D % 4 == 0 and D <= 128")
+    if k_pages.dtype == torch.bfloat16 and d % 8:
+        raise ValueError(f"head_dim {d}: bf16 pools move rows 16 bytes at a "
+                         "time, so D % 8 == 0")
     if h % hkv or 16 % (h // hkv):
         raise ValueError(f"H={h}, Hkv={hkv}: the kernel takes a GQA group "
                          "that divides 16")
@@ -316,7 +331,8 @@ def paged_attention_ragged(q, k_pages, v_pages, block_tables, context_lens,
     """Token-packed ragged paged attention: one launch for the whole hybrid
     step (DESIGN.md §11). q: (T, H, D) packed stream; pools (P, page, Hkv,
     D); block_tables: (S, n_pages); context_lens/q_starts/q_lens/pos0:
-    (S,) int32. Returns (T, H, D); rows no sequence owns are zero.
+    (S,) int32; q and the pools fp32 or bf16, alike. Returns (T, H, D) in
+    q's dtype; rows no sequence owns are zero.
 
     Sequences must own disjoint rows, and every block-table entry a
     sequence's context reaches must be a valid page id (the kernel reads
@@ -344,8 +360,9 @@ def paged_attention_ragged(q, k_pages, v_pages, block_tables, context_lens,
         return out
     plan = _ragged_plan(t, s, n_pages * page, h, hkv, d)
     part_o, part_lse = _scratch(q, plan.part_out, plan.part_lse)
-    dec_smem, chunk_smem = body_smem(d, 4, 16, plan.decode_vecs)
-    fn = _launcher("paged_attention_ragged")
+    dec_smem, chunk_smem = body_smem(d, q.element_size(), 16,
+                                     plan.decode_vecs)
+    fn = _launcher("paged_attention_ragged", _Q_SUFFIX[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -372,7 +389,8 @@ def paged_attention(q, k_pages, v_pages, block_table, context_lens, q_starts,
 
     q: (B, Tq, H, D); pools (P, page, Hkv, D); block_table: (B, n_pages);
     context_lens, q_starts: (B,) int32, ``q_starts[b]`` the global position
-    of q[b, 0]. Returns (B, Tq, H, D); a row with no visible key is 0.
+    of q[b, 0]; q and the pools fp32 or bf16, alike. Returns (B, Tq, H,
+    D) in q's dtype; a row with no visible key is 0.
 
     Every block-table entry a sequence's context reaches must be a valid
     page id (the kernel reads them unchecked: checking would cost a
@@ -399,12 +417,12 @@ def paged_attention(q, k_pages, v_pages, block_table, context_lens, q_starts,
     if out.numel() == 0:
         return out
     plan = batched_plan(b, tq, n_pages * page, h, hkv, d,
-                        _sms(q.device.index))
+                        _sms(q.device.index), q.element_size())
     if plan.blocks > GRID_X:
         raise ValueError(f"B3's grid ({plan.blocks} blocks) is past CUDA's "
                          f"{GRID_X}")
     part_o, part_lse = _scratch(q, plan.part_out, plan.part_lse)
-    fn = _launcher("paged_attention")
+    fn = _launcher("paged_attention", _Q_SUFFIX[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -432,8 +450,8 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
     ``paged_attention_ragged`` with int8 or fp8-e4m3 value pools (P, page,
     Hkv, D), f32 scale pools k_scales/v_scales (Ps, page, Hkv) and
     scale_tables (S, n_pages) of scale-page ids parallel to block_tables
-    (``BlockAllocator.scale_table``). Returns (T, H, D) f32; rows no
-    sequence owns are zero. Like the value pages, every scale-table entry a
+    (``BlockAllocator.scale_table``); q f32 or bf16. Returns (T, H, D) in
+    q's dtype; rows no sequence owns are zero. Like the value pages, every scale-table entry a
     context reaches must be a valid scale-page id (read unchecked).
     """
     d = q.shape[-1]
@@ -466,7 +484,8 @@ def paged_attention_ragged_quant(q, k_pages, v_pages, k_scales, v_scales,
                                     or v_pages.data_ptr() % 16) else 4
     dec_smem, chunk_smem = body_smem(d, 1, ch, plan.decode_vecs)
     fn = _launcher("paged_attention_ragged_quant",
-                   _QUANT_SUFFIX[k_pages.dtype])
+                   _QUANT_SUFFIX[k_pages.dtype]
+                   + ("_bf16" if q.dtype == torch.bfloat16 else ""))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

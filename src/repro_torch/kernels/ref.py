@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
-Same math as the JAX oracles in ``src/repro/kernels/ref.py``, in fp32.
-They are the CPU backend of the kernel wrappers and the ground truth the
-CUDA kernels are held against on the card (``chip_smoke.py``).
+Same math as the JAX oracles in ``src/repro/kernels/ref.py``, in fp32:
+bf16 inputs are cast to fp32 where the JAX oracles ``.astype(f32)`` them,
+and each output is cast once to its input's dtype (the SSD scan's y to the
+dtype asked for, its state fp32), as the Pallas kernels write them. They
+are the CPU backend of the kernel wrappers and the ground truth the CUDA
+kernels are held against on the card (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -208,7 +211,7 @@ def _attend_cuts(q, k, v, p0, ctx, *, split_keys, window, scale):
         (max(lo, i * split_keys), min(hi, (i + 1) * split_keys))
         for i in range(lo // split_keys, (hi - 1) // split_keys + 1)]
     q_pos = torch.arange(p0, p0 + n, device=q.device)
-    parts = [_attend_range(q.float(), k[a:b], v[a:b], q_pos,
+    parts = [_attend_range(q.float(), k[a:b].float(), v[a:b].float(), q_pos,
                            torch.arange(a, b, device=q.device),
                            window=window, scale=scale) for a, b in cuts]
     return merge_partial_attention(torch.stack([o for o, _ in parts]),
@@ -361,9 +364,11 @@ def segsum(a: torch.Tensor) -> torch.Tensor:
 
 def mamba_chunk_scan_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
                          b: torch.Tensor, c: torch.Tensor,
-                         init_state: Optional[torch.Tensor] = None):
+                         init_state: Optional[torch.Tensor] = None,
+                         y_dtype: Optional[torch.dtype] = None):
     """SSD over pre-chunked inputs (the Mamba2 chunk scan), in fp32 (fp64
-    for fp64 inputs: a check's exact answer).
+    for fp64 inputs: a check's exact answer); y cast to ``y_dtype``
+    (xdt's if None), the state in the compute dtype.
 
     xdt: (B, NC, L, H, P) inputs times dt; a_dt: (B, NC, L, H) log decays
     (A·dt, negative); b, c: (B, NC, L, N) (n_groups = 1); init_state:
@@ -396,7 +401,7 @@ def mamba_chunk_scan_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
     prev_states = torch.stack(prev, dim=1)                    # (b,c,h,p,n)
     y_off = torch.einsum("bcln,bchpn->bclhp", c, prev_states)
     y_off = y_off * torch.exp(a_cum)[..., None]
-    return y_diag + y_off, carry
+    return (y_diag + y_off).to(y_dtype or xdt.dtype), carry
 
 
 def mamba_chunk_scan_split_ref(xdt: torch.Tensor, a_dt: torch.Tensor,
@@ -461,7 +466,9 @@ def mamba_chunk_scan_backward_ref(xdt, a_dt, b, c, init_state, dy, dfinal):
     written out, in fp32 (fp64 for fp64 inputs). Shapes as the forward's;
     ``dy`` is y's gradient (B, NC, L, H, P), ``dfinal`` the final state's
     (B, H, P, N) or None (zeros), ``init_state`` None for zeros. Returns
-    (dxdt, da_dt, db, dc, dinit), dinit (B, H, P, N).
+    (dxdt, da_dt, db, dc, dinit), each of the first four in its input's
+    dtype (the VJP of ``.astype(f32)`` rounds it once), dinit (B, H, P, N)
+    in the compute dtype.
 
     Per (batch, chunk, head), A = cumsum(a) in the chunk, A_L its last
     entry, S the state carried into the chunk, w = exp(A_L − A), M = (C Bᵀ)
@@ -474,6 +481,7 @@ def mamba_chunk_scan_backward_ref(xdt, a_dt, b, c, init_state, dy, dfinal):
     Σ_p X ⊙ (the st term of dX), plus at A_L that term's total and
     Σ D ⊙ exp(A_L) S; da is dA's reverse cumulative sum in the chunk."""
     dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    out_dtypes = (xdt.dtype, a_dt.dtype, b.dtype, c.dtype)
     x, a, b, c, dy = (t.to(dt) for t in (xdt, a_dt, b, c, dy))
     bsz, nc, l, h, p = x.shape
     n = b.shape[-1]
@@ -514,7 +522,8 @@ def mamba_chunk_scan_backward_ref(xdt, a_dt, b, c, init_state, dy, dfinal):
     dacum = (q.sum(-1) - q.sum(-2)).permute(0, 1, 3, 2) \
         + (dy * y_off).sum(-1) - t                            # (b,c,l,h)
     dacum[:, :, -1] += t.sum(2) + decay * (d * s).sum((-1, -2))
-    return (dx, _reverse_cumsum(dacum, 2), db, dc, ds)
+    grads = (dx, _reverse_cumsum(dacum, 2), db, dc)
+    return (*(g.to(t) for g, t in zip(grads, out_dtypes)), ds)
 
 
 def mamba_chunk_scan_backward_split_ref(xdt, a_dt, b, c, init_state, dy,

@@ -50,9 +50,10 @@ class EncDecLM:
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator) -> dict:
-        """The JAX ``init`` tree, drawn by ``init_params`` from
-        ``generator`` (on this model's device)."""
-        return init_params(self.cfg, generator, self.device)
+        """The JAX ``init`` tree in ``param_dtype``, drawn by
+        ``init_params`` from ``generator`` (on this model's device)."""
+        return init_params(self.cfg, generator, self.device,
+                           self.opts.param_dtype)
 
     # ------------------------------------------------------------------
 
@@ -74,7 +75,7 @@ class EncDecLM:
         """Encoder memory (B, S_enc, d) after ``enc_ln_f``, and its
         positions."""
         cfg = self.cfg
-        x = enc_embeds.float()
+        x = enc_embeds.to(self.opts.compute_dtype)
         pos = self._positions(x)
         impl = _auto_impl(self.opts, x.shape[1])
         for i in range(cfg.n_encoder_layers):
@@ -84,14 +85,14 @@ class EncDecLM:
 
     def _cross_kv(self, params, memory):
         """The encoder memory projected to every decoder layer's cross K/V
-        (once): two (L, B, S_enc, Hkv, Dh) tensors."""
-        cfg = self.cfg
+        (once), in the cache dtype: two (L, B, S_enc, Hkv, Dh) tensors."""
+        cfg, cd = self.cfg, self.opts.cache_dtype
         b, s, _ = memory.shape
         cross = params["dec_layers"]["cross"]
-        k = torch.einsum("bsd,lde->lbse", memory, cross["wk"])
-        v = torch.einsum("bsd,lde->lbse", memory, cross["wv"])
+        k = torch.einsum("bsd,lde->lbse", memory, cross["wk"].to(memory.dtype))
+        v = torch.einsum("bsd,lde->lbse", memory, cross["wv"].to(memory.dtype))
         shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-        return k.reshape(shape), v.reshape(shape)
+        return k.reshape(shape).to(cd), v.reshape(shape).to(cd)
 
     def _dec_layer(self, lp, x, positions, mode, self_kv, cross_k, cross_v,
                    memory_pos, cache_width):
@@ -108,6 +109,9 @@ class EncDecLM:
                                     impl=_auto_impl(self.opts, x.shape[1]),
                                     flash_block=self.opts.flash_block,
                                     cache_width=cache_width)
+            if self_kv is not None:
+                cd = self.opts.cache_dtype
+                self_kv = (self_kv[0].to(cd), self_kv[1].to(cd), self_kv[2])
         x = L.cross_attn_apply(lp["cross"], x, (cross_k, cross_v),
                                memory_pos, positions, cfg, lp["lnx"])
         x = x + L.mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
@@ -149,7 +153,7 @@ class EncDecLM:
         return x, {"k": torch.stack(ks), "v": torch.stack(vs), "kv_pos": kp}
 
     def _dec_embed(self, params, toks):
-        return params["embed"].float()[toks.long()]
+        return params["embed"][toks.long()].to(self.opts.compute_dtype)
 
     def _logits(self, params, h_last):
         h = rmsnorm(h_last, params["ln_f"], self.cfg.norm_eps)
@@ -200,13 +204,13 @@ class EncDecLM:
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 4096):
         """Zero cache, the JAX ``init_cache``'s."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, dt = self.cfg, self.device, self.opts.cache_dtype
         kv = L.empty_kv_cache(cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-                              cfg.head_dim, device=dev)
+                              cfg.head_dim, dt, device=dev)
         cross = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
         return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
                 "kv": kv,
-                "cross_k": torch.zeros(cross, device=dev),
-                "cross_v": torch.zeros(cross, device=dev),
+                "cross_k": torch.zeros(cross, dtype=dt, device=dev),
+                "cross_v": torch.zeros(cross, dtype=dt, device=dev),
                 "memory_pos": torch.zeros((batch, enc_len),
                                           dtype=torch.int32, device=dev)}

@@ -55,9 +55,9 @@ def layer_ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def empty_kv_cache(n_layers: int, batch: int, width: int, n_kv: int,
-                   head_dim: int, dtype=torch.float32, device=None) -> dict:
-    """Zero K/V and empty slots; fp32 by default, the port's one cache
-    dtype (the JAX default of bf16 is ROADMAP B6's)."""
+                   head_dim: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Zero K/V and empty slots; bf16 by default, as the JAX
+    ``empty_kv_cache`` (the models pass their ``cache_dtype``)."""
     shape = (n_layers, batch, width, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -41,6 +41,14 @@ of ``{"k", "v", "kv_pos"}`` with per-layer widths when unrolled (gemma3's
 ``{"mamba": (L, ...), "attn": {"k", "v": (G, B, W, Hkv, Dh), "kv_pos": (G,
 B, W)}}`` with one attention cache per shared-block application.
 ``constrain`` is the identity: the port has no mesh (ROADMAP A13).
+Dtypes are the JAX package's (``ModelOpts``): parameters in
+``param_dtype``, activations in ``compute_dtype``, KV caches in
+``cache_dtype``, each fp32 or bf16, and the casts where JAX casts them
+(embeddings to the compute dtype, K/V to the cache dtype, logits and the
+cross-entropy in fp32, norms and softmax in fp32; mixed products get the
+cast ``jnp``'s promotion implies). The launch cells' serving opts are
+bf16 throughout, their training opts fp32 parameters with bf16 compute
+and cache (``src/repro/launch/steps.py``); Mamba2 states stay fp32.
 ``DecoderLM(cfg, opts, device=None)`` runs on the card unless the caller
 asks for the CPU (``_device.resolve_device``); ``build_model`` returns the
 encoder-decoder's ``encdec.EncDecLM`` for seamless-m4t-large-v2. Not
@@ -66,11 +74,15 @@ from .weights import init_params
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
+# the dtypes ModelOpts takes (fp16, which the JAX package also takes and
+# nothing in it uses, is ROADMAP B6's one gap left)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 @dataclasses.dataclass
 class ModelOpts:
-    """The JAX ``ModelOpts`` but for the costing switches. Every dtype is
-    fp32, as the JAX executor and model serve: another dtype raises
-    ``TypeError`` (bf16 is ROADMAP B6, the training dtypes A14)."""
+    """The JAX ``ModelOpts`` but for the costing switches. Each dtype is
+    fp32 or bf16; another raises ``TypeError``."""
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     cache_dtype: torch.dtype = torch.float32
@@ -83,11 +95,11 @@ class ModelOpts:
 
     def __post_init__(self):
         for name in ("param_dtype", "compute_dtype", "cache_dtype"):
-            if getattr(self, name) != torch.float32:
+            if getattr(self, name) not in DTYPES:
                 raise TypeError(
-                    f"ModelOpts.{name} must be torch.float32, not "
-                    f"{getattr(self, name)}: the port serves fp32 (bf16: "
-                    f"ROADMAP B6; training dtypes: A14)")
+                    f"ModelOpts.{name} must be torch.float32 or "
+                    f"torch.bfloat16, not {getattr(self, name)} (fp16: "
+                    f"ROADMAP B6)")
         if self.attn_impl not in ("dense", "flash", "auto"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.moe_impl not in MOE_IMPLS:
@@ -134,19 +146,28 @@ class DecoderLM:
                        or cfg.local_global_period is not None)
 
     def init(self, generator: torch.Generator) -> dict:
-        """The JAX ``init`` tree, drawn by ``init_params`` from
-        ``generator`` (on this model's device)."""
-        return init_params(self.cfg, generator, self.device)
+        """The JAX ``init`` tree in ``param_dtype``, drawn by
+        ``init_params`` from ``generator`` (on this model's device)."""
+        return init_params(self.cfg, generator, self.device,
+                           self.opts.param_dtype)
 
     # ------------------------------------------------------------------
     # pieces
     # ------------------------------------------------------------------
 
     def _embed(self, params, inputs):
+        """Embeddings in the compute dtype (the rows gathered, then cast:
+        the values of JAX's cast-then-gather)."""
+        cd = self.opts.compute_dtype
         if isinstance(inputs, dict) and "embeds" in inputs:
-            return inputs["embeds"].float()
+            return inputs["embeds"].to(cd)
         toks = inputs["tokens"] if isinstance(inputs, dict) else inputs
-        return params["embed"].float()[toks.long()]
+        return params["embed"][toks.long()].to(cd)
+
+    def _to_cache(self, kv):
+        """A prefill's (k, v, kv_pos) with K and V in the cache dtype."""
+        cd = self.opts.cache_dtype
+        return None if kv is None else (kv[0].to(cd), kv[1].to(cd), kv[2])
 
     def _layer_seq(self, lp, x, positions, window, cache_width, impl):
         # banded SWA flash on the (no-grad) prefill path only
@@ -155,7 +176,8 @@ class DecoderLM:
                            flash_block=self.opts.flash_block,
                            banded=cache_width is not None,
                            cache_width=cache_width)
-        return L.layer_ffn(self.cfg, lp, x, self.opts.moe_impl), kv
+        return (L.layer_ffn(self.cfg, lp, x, self.opts.moe_impl),
+                self._to_cache(kv))
 
     def _layer_decode(self, lp, x, positions, window, kv):
         x, kv = L.attn_decode(lp["attn"], x, positions, self.cfg,
@@ -282,6 +304,7 @@ class DecoderLM:
                                flash_block=self.opts.flash_block,
                                cache_width=max_len if mode == "prefill"
                                else None)
+            kv = self._to_cache(kv)
         x = x + L.mlp_apply(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
         return x, kv
 
@@ -396,7 +419,7 @@ class DecoderLM:
 
     def init_cache(self, batch: int, max_len: int):
         """Zero cache (engine restore path / decode-only lowering)."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, dt = self.cfg, self.device, self.opts.cache_dtype
         cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                           device=dev)}
         if cfg.family in ("ssm", "hybrid"):
@@ -405,7 +428,7 @@ class DecoderLM:
             if cfg.family == "hybrid":
                 n_groups = cfg.n_layers // cfg.attn_period
                 kvc = L.empty_kv_cache(n_groups, batch, max_len,
-                                       cfg.n_kv_heads, cfg.head_dim,
+                                       cfg.n_kv_heads, cfg.head_dim, dt,
                                        device=dev)
                 kvc["kv_pos"] = kvc["kv_pos"].expand(
                     n_groups, batch, max_len).contiguous()
@@ -415,13 +438,13 @@ class DecoderLM:
             for i in range(cfg.n_layers):
                 width = self._width(cfg.layer_window(i), max_len)
                 c = L.empty_kv_cache(1, batch, width, cfg.n_kv_heads,
-                                     cfg.head_dim, device=dev)
+                                     cfg.head_dim, dt, device=dev)
                 cache["kv"].append({"k": c["k"][0], "v": c["v"][0],
                                     "kv_pos": c["kv_pos"]})
         else:
             cache["kv"] = L.empty_kv_cache(
                 cfg.n_layers, batch, self._width(cfg.window, max_len),
-                cfg.n_kv_heads, cfg.head_dim, device=dev)
+                cfg.n_kv_heads, cfg.head_dim, dt, device=dev)
         return cache
 
 

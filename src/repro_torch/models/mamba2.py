@@ -35,13 +35,13 @@ def _dims(cfg: ArchConfig):
 
 
 def init_mamba_params(cfg: ArchConfig, generator: torch.Generator, device,
-                      lead: tuple = ()) -> dict:
+                      lead: tuple = (), dtype=torch.float32) -> dict:
     """The port's own Mamba2 weights, the distributions of the JAX
     ``init_mamba_params``: normal projections × 1/sqrt(fan_in), ``conv_w``
     × 0.1, zero ``conv_b`` and ``norm_w``, ``A_log = log(1..H)``, ``D = 1``
     and ``dt_bias = softplus⁻¹(0.01)``; every tensor with the leading dims
-    ``lead`` (``(n_layers,)`` for the stacked tree). ``generator`` lives on
-    ``device``."""
+    ``lead`` (``(n_layers,)`` for the stacked tree), drawn in fp32 and
+    cast to ``dtype``. ``generator`` lives on ``device``."""
     s, di, h, p, n = _dims(cfg)
     d = cfg.d_model
     conv_dim = di + 2 * n
@@ -56,7 +56,7 @@ def init_mamba_params(cfg: ArchConfig, generator: torch.Generator, device,
     def per_head(row):
         return row.to(dev).expand(lead + (h,)).contiguous()
 
-    return {
+    tree = {
         "in_proj": normal((d, proj_out), 1.0 / math.sqrt(d)),
         "conv_w": normal((s.d_conv, conv_dim), 0.1),
         "conv_b": torch.zeros(lead + (conv_dim,), device=dev),
@@ -66,6 +66,7 @@ def init_mamba_params(cfg: ArchConfig, generator: torch.Generator, device,
         "norm_w": torch.zeros(lead + (di,), device=dev),
         "out_proj": normal((di, d), 1.0 / math.sqrt(di)),
     }
+    return {k: v.to(dtype) for k, v in tree.items()}
 
 
 def ssd_chunked(xdt, a_dt, b, c, chunk: int, init_state=None):
@@ -74,7 +75,9 @@ def ssd_chunked(xdt, a_dt, b, c, chunk: int, init_state=None):
     xdt: (B, S, H, P) — inputs pre-multiplied by dt
     a_dt: (B, S, H)   — per-step log decay (A*dt, negative)
     b, c: (B, S, N)   — input/output projections (n_groups=1)
-    Returns (y (B,S,H,P), final_state (B,H,P,N)).
+    Returns (y (B,S,H,P), final_state (B,H,P,N)), both fp32: JAX casts the
+    four inputs to fp32; here xdt and a_dt are cast and b and c go to B5
+    in their own dtype (the kernel widens bf16 exactly, the same values).
     """
     bsz, s, h, p = xdt.shape
     n = b.shape[-1]
@@ -83,9 +86,8 @@ def ssd_chunked(xdt, a_dt, b, c, chunk: int, init_state=None):
     y, final = mamba_chunk_scan_op(
         xdt.float().reshape(bsz, nc, chunk, h, p),
         a_dt.float().reshape(bsz, nc, chunk, h),
-        b.float().reshape(bsz, nc, chunk, n),
-        c.float().reshape(bsz, nc, chunk, n),
-        None if init_state is None else init_state.float())
+        b.reshape(bsz, nc, chunk, n), c.reshape(bsz, nc, chunk, n),
+        None if init_state is None else init_state.float(), torch.float32)
     return y.reshape(bsz, s, h, p), final
 
 

@@ -18,6 +18,12 @@ The capacity path is differentiable: ``moe_gmm_op`` is the ``MoeGmm``
 Function, so in training B4 also runs the two backward GEMMs of each
 expert GEMM.
 
+Dtypes follow ``jnp``: the router and the combine run in fp32, the
+output in x's dtype, and each expert product runs in the dtype JAX's
+einsum promotes its operands to (``_promoted``): bf16 activations with
+fp32 parameters (the launch training opts) in fp32, with bf16 parameters
+(the serving opts) in bf16, where ``torch.matmul`` would refuse the mix.
+
 What differs from the JAX package, none of it changing a value: no
 ``constrain`` sharding hints (the port is single-device until ROADMAP A13)
 and no ``jax.checkpoint`` around each router chunk (``DecoderLM``
@@ -45,6 +51,13 @@ from .module import silu
 MOE_IMPLS = ("exact", "capacity")
 
 
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` cast to the dtype ``jnp`` promotes a product of the
+    two to (a no-op for one that has it already)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     """Top-k routing. Returns (gates (T, k) f32, experts (T, k) int64)."""
     logits = x.float() @ router.float()
@@ -58,9 +71,9 @@ def moe_dense_exact(x: torch.Tensor, params: dict,
     """x: (T, d) → (T, d). Computes all experts; exact oracle."""
     t, _ = x.shape
     gates, tope = _route(x, params["router"], cfg.top_k)
-    h = torch.matmul(x, params["w_gate"])                     # (E, T, f)
-    u = torch.matmul(x, params["w_up"])
-    y = torch.matmul(silu(h) * u, params["w_down"])           # (E, T, d)
+    h = torch.matmul(*_promoted(x, params["w_gate"]))         # (E, T, f)
+    u = torch.matmul(*_promoted(x, params["w_up"]))
+    y = torch.matmul(*_promoted(silu(h) * u, params["w_down"]))  # (E, T, d)
     # a token's top-k experts are distinct: scatter equals JAX's .at[].add
     dense_gates = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
                               device=x.device).scatter_(1, tope, gates)
@@ -125,9 +138,9 @@ def _moe_chunk(x: torch.Tensor, valid: torch.Tensor, params: dict,
     dp = dispatch(x, valid, params["router"], cfg, capacity)
     x_pad = torch.cat([x, x.new_zeros(1, d)])
     xg = x_pad[dp.slot_token].reshape(e, capacity, d)
-    h = moe_gmm_op(xg, params["w_gate"])
-    u = moe_gmm_op(xg, params["w_up"])
-    y = moe_gmm_op(silu(h) * u, params["w_down"])
+    h = moe_gmm_op(*_promoted(xg, params["w_gate"]))
+    u = moe_gmm_op(*_promoted(xg, params["w_up"]))
+    y = moe_gmm_op(*_promoted(silu(h) * u, params["w_down"]))
     y_flat = y.reshape(e * capacity, d).float()
 
     # combine: out[st] += gate * y[slot], a dropped slot adding 0

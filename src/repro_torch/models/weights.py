@@ -16,13 +16,17 @@ ln2}`` (``cross`` an attention block), ``ln_f`` and ``head``.
 
 * ``params_from_numpy`` carries a JAX parameter tree across as numpy
   arrays (``jax.tree.map(np.asarray, params)``), so both packages compute
-  the same function in the parity tests; ``params_to_numpy`` brings a tree
-  (parameters or a cache, lists included) back.
+  the same function in the parity tests, in the dtype asked for (the
+  model's ``param_dtype``): numpy holds a JAX bf16 array as
+  ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so every
+  leaf goes through fp32, which holds a bf16 exactly, and then to the
+  dtype. ``params_to_numpy`` brings a tree (parameters or a cache, lists
+  included) back, bf16 as fp32 (exact).
 * ``init_params`` is the port's own initializer, drawing the same
   distributions as the JAX one (normal × 1/sqrt(fan_in), embed × 0.02, zero
   norms; MoE weights as ``init_moe_params``; Mamba2 weights as
   ``init_mamba_params``; the encoder-decoder's as ``EncDecLM.init``) from a
-  ``torch.Generator``.
+  ``torch.Generator``, in fp32 and then cast to the dtype asked for.
   It is for runs without JAX, such as
   ``chip_smoke.py`` at full width, and never decides a parity result.
 """
@@ -45,16 +49,20 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_numpy(tree: dict, device) -> dict:
-    """Numpy (or array-like) parameter tree → fp32 tensors on ``device``."""
+def params_from_numpy(tree: dict, device, dtype=torch.float32) -> dict:
+    """Numpy (or array-like) parameter tree → ``dtype`` tensors on
+    ``device`` (through fp32: exact for a bf16 leaf)."""
     dev = torch.device(device)
     return _map(tree, lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(dev))
+        np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype))
 
 
 def params_to_numpy(params: dict) -> dict:
-    """The inverse bridge: tensors → numpy arrays, same tree."""
-    return _map(params, lambda t: t.detach().cpu().numpy())
+    """The inverse bridge: tensors → numpy arrays, same tree (bf16 as
+    fp32, which holds it exactly)."""
+    return _map(params, lambda t: (t.detach().float() if t.dtype
+                                   == torch.bfloat16 else t.detach())
+                .cpu().numpy())
 
 
 def params_to(params: dict, device) -> dict:
@@ -63,9 +71,11 @@ def params_to(params: dict, device) -> dict:
     return _map(params, lambda t: t.to(dev))
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
-    """Random fp32 parameters for ``cfg`` (dense, MoE, VLM, SSM, hybrid or
-    the encoder-decoder); the generator must live on ``device``."""
+def init_params(cfg: ArchConfig, generator: torch.Generator, device,
+                dtype=torch.float32) -> dict:
+    """Random parameters for ``cfg`` (dense, MoE, VLM, SSM, hybrid or the
+    encoder-decoder) in ``dtype``, drawn in fp32 leaf by leaf; the
+    generator must live on ``device``."""
     uniform = cfg.family in ("dense", "moe", "vlm") and cfg.ssm is None
     mamba = (cfg.ssm is not None and (cfg.family == "ssm" or (
         cfg.family == "hybrid" and cfg.attn_period is not None)))
@@ -80,10 +90,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     def normal(shape, std):
         x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return x.mul_(std)
+        return x.mul_(std).to(dtype)
 
     def zeros(shape):
-        return torch.zeros(shape, device=dev, dtype=torch.float32)
+        return torch.zeros(shape, device=dev, dtype=dtype)
 
     def attn(lead):
         sq = 1.0 / math.sqrt(cfg.q_dim)
@@ -113,7 +123,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
         return params
     if cfg.family in ("ssm", "hybrid"):
         params["layers"] = {
-            "mamba": init_mamba_params(cfg, generator, dev, lead=(n,)),
+            "mamba": init_mamba_params(cfg, generator, dev, lead=(n,),
+                                       dtype=dtype),
             "ln": zeros((n, d))}
         if cfg.family == "hybrid":
             params["shared"] = {"attn": attn(()), "ln1": zeros((d,)),

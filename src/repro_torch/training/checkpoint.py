@@ -2,7 +2,11 @@
 state) plus an optional JSON of host state. Port of
 ``src/repro/training/checkpoint.py``, in its format: the path of each leaf
 is its dict keys joined by ``/``, list entries as ``#i``; the arrays keep
-their dtypes (the step is int32). A checkpoint written by either package
+their dtypes (the step is int32). A bf16 leaf is written as JAX's
+``np.savez`` writes one: numpy holds a JAX bf16 array as
+``ml_dtypes.bfloat16``, which the ``.npz`` stores as ``|V2``, its two raw
+bytes; ``load_checkpoint`` reads a ``|V2`` leaf back as bf16, bit for
+bit. A checkpoint written by either package
 loads in the other.
 
 Restarting from a checkpoint is exact: ``load_checkpoint`` gives back the
@@ -30,10 +34,27 @@ def _flatten(tree, prefix: str = "") -> dict:
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}#{i}/"))
     else:
-        out[prefix[:-1]] = (tree.detach().cpu().numpy()
-                            if isinstance(tree, torch.Tensor)
+        out[prefix[:-1]] = (_to_numpy(tree) if isinstance(tree, torch.Tensor)
                             else np.asarray(tree))
     return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as its raw two bytes a value (``|V2``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_RAW_BF16)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """The inverse of ``_to_numpy``: a ``|V2`` array is bf16."""
+    if a.dtype == _RAW_BF16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+_RAW_BF16 = np.dtype("V2")
 
 
 def _unflatten(flat: dict, device: torch.device):
@@ -47,7 +68,7 @@ def _unflatten(flat: dict, device: torch.device):
 
     def fix(node):
         if not isinstance(node, dict):
-            return torch.from_numpy(node).to(device)
+            return _from_numpy(node).to(device)
         if node and all(k.startswith("#") for k in node):
             return [fix(node[f"#{i}"]) for i in range(len(node))]
         return {k: fix(v) for k, v in node.items()}

@@ -6,7 +6,10 @@
   matrix of at least 8 x 8), no first moment: kimi-k2's optimizer state
   shrinks from 8 TB (AdamW, fp32) to about params/row + col.
 
-The math is fp32 throughout, as in JAX; the step is a 0-d int32 tensor and
+Parameters may be fp32 or bf16 (the launch cells' serving dtype); the
+moments are fp32, the math is fp32 throughout and each new parameter is
+rounded once to its own dtype (``copy_``, round to nearest even, as JAX's
+``.astype(p.dtype)``), as in JAX; the step is a 0-d int32 tensor and
 the bias corrections ``1 - b ** step`` are computed from it in fp32 on the
 device. Trees are nested dicts and lists of tensors; ``leaves`` walks them
 in the JAX package's order (dict keys sorted), so a global norm sums its

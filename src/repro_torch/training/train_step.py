@@ -45,7 +45,8 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1):
 
     accum_steps > 1 splits dim 0 of every batch leaf into that many
     microbatches, one backward pass each, and sums their gradients in
-    fp32 (one buffer tree); the loss is the microbatches' mean.
+    fp32 (one buffer tree, fp32 whatever the parameters' dtype, as JAX's
+    f32 zeros); the loss is the microbatches' mean.
     """
     loss_fn = model.train_loss
 
@@ -60,8 +61,8 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1):
                       for k, v in batch.items()}
                 loss, g = value_and_grad(loss_fn, params, mb)
                 losses.append(loss)
-                acc = g if acc is None else tree_map(
-                    lambda a, b: a.add_(b.float()), acc, g)
+                acc = tree_map(lambda b: b.float(), g) if acc is None \
+                    else tree_map(lambda a, b: a.add_(b.float()), acc, g)
                 del g
             grads = tree_map(lambda a: a.div_(accum_steps), acc)
             loss = torch.stack(losses).mean()

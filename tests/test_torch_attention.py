@@ -146,7 +146,7 @@ def test_ring_writes_equal_jax(seq_len):
 
 def test_empty_kv_cache_equals_jax():
     want = jl.empty_kv_cache(3, 2, 8, 2, 4, dtype=jnp.float32)
-    got = tl.empty_kv_cache(3, 2, 8, 2, 4)
+    got = tl.empty_kv_cache(3, 2, 8, 2, 4, dtype=torch.float32)
     assert got.keys() == want.keys()
     for key in want:
         assert np.array_equal(got[key].numpy(), np.asarray(want[key]))

@@ -71,6 +71,13 @@ gradient within 1e-4 of its max |g| against the fp64 plain backward over
 chunk lengths on both sides of its slabs and both families' heads, with
 and without an initial state and a final-state gradient, writes every
 element of outputs that start as NaN, and repeats bitwise.
+bf16: each kernel takes bf16 where its Pallas kernel does (B1 and B3 bf16
+q and pools, B2 a bf16 q over its 1-byte pools, B4 bf16 x and w, B5 bf16
+xdt, a_dt, b and c, or fp32 xdt and a_dt with bf16 b and c as the model
+gives them) and is held against its plain version's fp32 math on the
+same (widened) inputs: at most one bf16 rounding of the output, |Δ| ≤
+2⁻⁸·|plain| + 1e-4·max|plain|, and a repeat bitwise equal; fp16 raises
+``TypeError``.
 """
 import dataclasses
 
@@ -1436,3 +1443,222 @@ def test_mamba_chunk_scan_grad_through_backward_kernel(cuda, arch):
         fwd = mamba_chunk_scan.launches
         y, _ = mamba_chunk_scan_op(x, a, b, c)
     assert y.grad_fn is None and mamba_chunk_scan.launches == fwd + 1
+
+
+# -- bf16 ------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _one_rounding(got, plain, name=""):
+    """``got`` (bf16, or fp32 from bf16 inputs) is the plain version's fp32
+    result ``plain`` up to one bf16 rounding of the output and fp32 sums
+    taken in another order: |Δ| ≤ 2⁻⁸·|plain| + 1e-4·max|plain|."""
+    got, plain = got.double(), plain.double()
+    assert torch.isfinite(got).all(), name
+    bar = 2.0 ** -8 * plain.abs() + 1e-4 * float(plain.abs().max())
+    assert bool(((got - plain).abs() <= bar).all()), (
+        name, float((got - plain).abs().max()))
+
+
+def _bf16(args, n):
+    """The first ``n`` tensors of ``args`` rounded to bf16, the rest as
+    they are."""
+    return [t.to(BF16) if i < n else t for i, t in enumerate(args)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[2:7]}")
+def test_kernel_bf16_matches_plain_version(cuda, layout):
+    *shape, window = layout
+    q, k, v, *meta = _bf16(_inputs(*shape, cuda), 3)
+    before = paged_attention_ragged.launches
+    got = paged_attention_ragged(q, k, v, *meta, window=window)
+    again = paged_attention_ragged(q, k, v, *meta, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_ragged.launches == before + 2
+    assert got.dtype == BF16 and torch.equal(got, again)
+    plain = paged_attention_ragged_ref(q.float(), k, v, *meta, window=window)
+    _one_rounding(got, plain)
+    assert torch.all(got[sum(layout[0]):] == 0)
+
+
+@pytest.mark.parametrize("layout", BATCHED, ids=lambda l: f"{l[:5]}")
+def test_batched_kernel_bf16_matches_plain_version(cuda, layout):
+    *shape, window = layout
+    q, k, v, *meta = _bf16(_batched(*shape, cuda), 3)
+    before = paged_attention.launches
+    got = paged_attention(q, k, v, *meta, window=window)
+    again = paged_attention(q, k, v, *meta, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 2
+    assert got.dtype == BF16 and torch.equal(got, again)
+    _one_rounding(got, paged_attention_ref(q.float(), k, v, *meta,
+                                           window=window))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[2:7]}")
+def test_quant_kernel_bf16_q_matches_plain_version(cuda, fmt, layout):
+    *shape, window = layout
+    q, *rest = _quant_inputs(fmt, shape, cuda)
+    q = q.to(BF16)
+    before = paged_attention_ragged_quant.launches
+    got = paged_attention_ragged_quant(q, *rest, window=window)
+    again = paged_attention_ragged_quant(q, *rest, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_ragged_quant.launches == before + 2
+    assert got.dtype == BF16 and torch.equal(got, again)
+    _one_rounding(got, paged_attention_ragged_quant_ref(q.float(), *rest,
+                                                        window=window))
+    assert torch.all(got[sum(layout[0]):] == 0)
+
+
+def test_attention_bf16_refusals(cuda):
+    q, k, v, *meta = _inputs(*LAYOUTS[0][:-1], cuda)
+    with pytest.raises(TypeError):          # fp16
+        paged_attention_ragged(q.half(), k.half(), v.half(), *meta)
+    with pytest.raises(TypeError):          # bf16 q over fp32 pools
+        paged_attention_ragged(q.to(BF16), k, v, *meta)
+    q, k, v, *meta = _inputs([2, 1], [0, 5], 4, 2, 20, 16, 2, cuda)
+    with pytest.raises(ValueError, match="D % 8"):
+        paged_attention_ragged(q.to(BF16), k.to(BF16), v.to(BF16), *meta)
+
+
+# B4 in bf16: the MOE_SHAPES with K and N even (a copy moves 4 bytes at
+# least), both bodies, the split-K path and the 4-byte copies (K or N off
+# 8)
+GMM_BF16_SHAPES = [s for s in MOE_SHAPES if s[2] % 2 == 0 and s[3] % 2 == 0]
+
+
+@pytest.mark.parametrize("shape", GMM_BF16_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_gmm_bf16_matches_plain_version(cuda, shape):
+    e, c, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((e, c, k), generator=g, device=cuda).mul_(0.3).to(BF16)
+    w = torch.randn((e, k, n), generator=g, device=cuda).mul_(0.3).to(BF16)
+    before = moe_gmm.launches
+    got = moe_gmm(x, w)
+    again = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 2
+    assert got.dtype == BF16 and got.shape == (e, c, n)
+    assert torch.equal(again, got)
+    _one_rounding(got, moe_gmm_ref(x.float(), w.float()))
+    del x, w, got, again
+    torch.cuda.empty_cache()
+
+
+def test_moe_gmm_bf16_refusals(cuda):
+    x = torch.zeros((2, 4, 8), device=cuda, dtype=BF16)
+    w = torch.zeros((2, 8, 12), device=cuda, dtype=BF16)
+    with pytest.raises(TypeError):
+        moe_gmm(x.half(), w.half())
+    with pytest.raises(TypeError):          # mixed: the caller casts
+        moe_gmm(x, w.float())
+    with pytest.raises(ValueError):         # K odd
+        moe_gmm(torch.zeros((2, 4, 7), device=cuda, dtype=BF16),
+                torch.zeros((2, 7, 12), device=cuda, dtype=BF16))
+
+
+@pytest.mark.parametrize("shape", [s for s in GMM_GRAD_SHAPES
+                                   if not any(v % 2 for v in s[1:])],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_gmm_backward_bf16_matches_plain_version(cuda, shape):
+    """C, K and N even: each is the contraction of one of the three GEMMs
+    (the capacities are multiples of 4)."""
+    e, c, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((e, c, k), generator=g, device=cuda).mul_(0.3).to(BF16)
+    w = torch.randn((e, k, n), generator=g, device=cuda).mul_(0.3).to(BF16)
+    dy = torch.randn((e, c, n), generator=g, device=cuda).mul_(0.3).to(BF16)
+    before = moe_gmm.launches
+    dx, dw = torch.autograd.grad(
+        MoeGmm.apply(x.requires_grad_(), w.requires_grad_()), (x, w), dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 3
+    assert dx.dtype == dw.dtype == BF16
+    xr, wr = (t.detach().float().requires_grad_() for t in (x, w))
+    ex, ew = torch.autograd.grad(moe_gmm_ref(xr, wr), (xr, wr), dy.float())
+    _one_rounding(dx, ex, "dx")
+    _one_rounding(dw, ew, "dw")
+    del x, w, dy, dx, dw, ex, ew, xr, wr
+    torch.cuda.empty_cache()
+
+
+# B5 in bf16: (xdt and a_dt, b and c, y) dtypes of the kernel's contract
+# and of the model at bf16 compute
+SCAN_BF16 = {"bf16": (BF16, BF16, None), "model": (torch.float32, BF16,
+                                                  torch.float32)}
+
+
+@pytest.mark.parametrize("combo", sorted(SCAN_BF16))
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES[:9] + SCAN_SHAPES[13:15],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mamba_chunk_scan_bf16_matches_plain_version(cuda, shape, init,
+                                                     combo):
+    xt, bt, yt = SCAN_BF16[combo]
+    x, a, b, c, s0 = _scan_inputs(shape, cuda)
+    x, a, b, c = x.to(xt), a.to(xt), b.to(bt), c.to(bt)
+    s0 = s0 if init else None
+    before = mamba_chunk_scan.launches
+    y, st = mamba_chunk_scan(x, a, b, c, s0, yt)
+    y2, st2 = mamba_chunk_scan(x, a, b, c, s0, yt)
+    torch.cuda.synchronize()
+    assert mamba_chunk_scan.launches == before + 2
+    assert y.dtype == (yt or xt) and st.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    yr, str_ = mamba_chunk_scan_ref(*(t.float() for t in (x, a, b, c)), s0)
+    _one_rounding(y, yr, "y")
+    tol = 1e-4 * max(1.0, float(str_.abs().max()))
+    assert float((st - str_).abs().max()) < tol
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mamba_chunk_scan_backward_bf16_matches_plain_version(cuda, shape):
+    """``MambaChunkScan`` at the model's dtypes (fp32 xdt and a_dt, bf16 b
+    and c) with y in fp32 (what the backward reads): each gradient in its
+    input's dtype, one rounding away from the fp64 plain backward on the
+    widened inputs, a repeat bitwise equal."""
+    xt, bt, _ = SCAN_BF16["model"]
+    x, a, b, c, _ = _scan_inputs(shape, cuda, seed=2)
+    x, a, b, c = x.to(xt), a.to(xt), b.to(bt), c.to(bt)
+    dy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    want = mamba_chunk_scan_backward_ref(
+        *(t.double() for t in (x, a, b, c)), None, dy.double(), None)[:4]
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_() for t in (x, a, b, c)]
+        before = mamba_chunk_scan_backward.launches
+        y, _ = MambaChunkScan.apply(*ins, None, torch.float32)
+        assert y.dtype == torch.float32
+        runs.append(torch.autograd.grad(y, ins, dy))
+        torch.cuda.synchronize()
+        assert mamba_chunk_scan_backward.launches == before + 1
+    for name, got, again, exact, t in zip("xabc", runs[0], runs[1], want,
+                                          (x, a, b, c)):
+        assert got.dtype == t.dtype
+        _one_rounding(got, exact, name)
+        assert torch.equal(got, again)
+
+
+def test_mamba_chunk_scan_bf16_refusals(cuda):
+    x, a, b, c, s0 = _scan_inputs((1, 2, 16, 2, 16, 16), cuda)
+    with pytest.raises(TypeError):                  # fp16
+        mamba_chunk_scan(x.half(), a.half(), b.half(), c.half())
+    with pytest.raises(TypeError):                  # bf16 xdt, fp32 b and c
+        mamba_chunk_scan(x.to(BF16), a.to(BF16), b, c)
+    with pytest.raises(TypeError):                  # a bf16 state
+        mamba_chunk_scan(x, a, b, c, s0.to(BF16))
+    with pytest.raises(TypeError):                  # the backward reads fp32 y
+        MambaChunkScan.apply(*(t.to(BF16).requires_grad_()
+                               for t in (x, a, b, c)), None, None)
+    with pytest.raises(TypeError):                  # bf16 xdt: forward only
+        MambaChunkScan.apply(*(t.to(BF16).requires_grad_()
+                               for t in (x, a, b, c)), None, torch.float32)
+    with pytest.raises(TypeError):                  # no fp32 y from bf16 xdt
+        mamba_chunk_scan(*(t.to(BF16) for t in (x, a, b, c)), None,
+                         torch.float32)

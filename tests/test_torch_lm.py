@@ -22,7 +22,7 @@ capacity), kimi-k2-1t-a32b and zamba2-2.7b (hybrid):
   name, and the registry holds every decoder-only arch;
 * the port's ``init_params`` builds the JAX tree for the new families, the
   bridge carries the hybrid's ``shared`` subtree unchanged, and
-  ``ModelOpts`` refuses any dtype but fp32.
+  ``ModelOpts`` takes fp32 and bf16 and refuses fp16.
 """
 import dataclasses
 import pathlib
@@ -278,9 +278,13 @@ def test_bridge_carries_the_hybrid_tree(weights):
 
 
 def test_model_opts_serve_fp32_only():
+    """fp32 and bf16 are taken (the launch cells' dtypes), fp16 raises
+    with its pointer to ROADMAP B6."""
     for name in ("param_dtype", "compute_dtype", "cache_dtype"):
+        for dt in (torch.float32, torch.bfloat16):
+            assert getattr(ModelOpts(**{name: dt}), name) == dt
         with pytest.raises(TypeError, match="B6"):
-            ModelOpts(**{name: torch.bfloat16})
+            ModelOpts(**{name: torch.float16})
     with pytest.raises(ValueError, match="attn_impl"):
         ModelOpts(attn_impl="ring")
     with pytest.raises(ValueError, match="moe_impl"):

@@ -280,20 +280,22 @@ def test_quant_check_rejects_what_b2_does_not_take(bad, err):
 
 
 def test_b2_launchers_match_their_ctypes_signatures():
-    """B2 exports one extern "C" launcher per value type, with one
-    parameter list; the wrapper's argtypes follow it type for type and it
-    picks the launcher by the pools' dtype."""
+    """B2 exports one extern "C" launcher per value type and q type (f32,
+    or bf16 with the suffix ``_bf16``), with one parameter list; the
+    wrapper's argtypes follow it type for type and it picks the launcher
+    by the pools' dtype and q's."""
     src = (_build.CSRC / _build.SOURCES["paged_attention_ragged_quant"]
            ).read_text()
     found = dict(re.findall(
         r'extern "C" int (paged_attention_ragged_quant_\w+)\((.*?)\)', src,
         re.S))
-    assert set(found) == {"paged_attention_ragged_quant_i8",
-                          "paged_attention_ragged_quant_f8"}
+    assert set(found) == {f"paged_attention_ragged_quant_{v}{q}"
+                          for v in ("i8", "f8") for q in ("", "_bf16")}
     kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
     for symbol, params in found.items():
         want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
                 for p in params.split(",")]
         assert tpa._SIG[symbol] == want
-    assert {f"paged_attention_ragged_quant_{s}"
-            for s in tpa._QUANT_SUFFIX.values()} == set(found)
+    assert {f"paged_attention_ragged_quant_{s}{q}"
+            for s in tpa._QUANT_SUFFIX.values()
+            for q in ("", "_bf16")} == set(found)
