@@ -295,7 +295,34 @@ nothing of the JAX package. Phases, each printing its own lines:
    decoder tokens plus 8 greedy steps, and ``train_loss`` of 2 × (256
    frames, 64 tokens), card and CPU. Gates: first logits within 1e-3,
    tokens equal, 4j's gradient gates, no kernel launched.
-4m. bf16 parity — h2o-danube-1.8b 2 layers, mixtral-8x7b 1 (capacity),
+3i. kernels at the per-shard shapes of the sharded data plane — B1 on
+   steps (a) and (b) and B2 in int8 on step (a), pages of 128, at
+   h2o-danube-1.8b's heads a rank at TP 2 (H 16, Hkv 4) and TP 4 (H 8,
+   Hkv 2), with phase 3's and 3c's gates, timing and bound (lines
+   ``shard_kernel_step``); after 5d, B4 at mixtral-8x7b's experts a rank
+   at TP 2 (E 4), gate/up and down, at C = 8 and at the largest capacity
+   5d launched, with 3d's gates (``moe_kernel_step`` ``ep2_*``).
+4n. TP parity — ``launch.mesh.spawn`` starts the ranks of a 1 × TP mesh,
+   one process each, all on this card (gloo, which all-reduces and
+   broadcasts CUDA tensors through the host: NCCL refuses two ranks on
+   one device), and each serves through the sharded executor
+   (``mesh=``): rank 0 runs the engine, the others replay its
+   dispatches. On the model clock (``MODEL_CLOCK``), phase 4's requests:
+   h2o-danube-1.8b at full width, 2 layers, TP 2 and 4, fp32 and int8 KV
+   — tokens equal the single-device sequential card run, plans, deferrals
+   and VTC counters byte-equal to it (TP 1) at per-shard budgets
+   (``cost_shards`` = TP); mixtral-8x7b at full width, 2 layers, TP 2 —
+   ``exact`` tokens equal single-device sequential, ``capacity`` tokens
+   the single-device fused ``capacity`` run (same plans); h2o-danube-1.8b
+   at 2 layers, TP 2, ``mode="sequential"`` — tokens, decisions and VTC
+   counters equal the single-device sequential run. Every case: every
+   rank 2·L + 2 all-reduces and L B1 (B2 in int8; B3 in sequential)
+   launches a dispatch, B4 on every rank under capacity; dispatches =
+   engine steps in fused mode (one a chunk and one a decode batch in
+   sequential). Then
+   TP 1 on NCCL: every dispatch's logits bitwise equal to ``mesh=None``'s
+   (lines ``tp_parity``).
+
    mamba2-1.3b 2, zamba2-2.7b 7, at full width, the port's own weights
    (seed 1). Served at the JAX launch cells' serving opts (bf16 params,
    compute and cache, flash prefill): 2 prompts of 256 tokens (mixtral
@@ -341,31 +368,41 @@ nothing of the JAX package. Phases, each printing its own lines:
    (46.4 GB of bf16 weights, the memory 5d's 8 fp32 layers take), 4
    prompts of 2048 tokens then 32 greedy steps; (ii) mamba2-1.3b at full
    depth on 5e (i)'s workload (8 × 2048, then 64 steps).
+5l. timed TP serve — h2o-danube-1.8b at full depth and width, TP 2 (two
+   processes on this card, gloo), serve-16's traffic on the wall clock:
+   phase 5's gates and numbers, with the collectives' ms a step (device
+   synchronised either side of each all-reduce and broadcast on rank 0)
+   and the share of tokens equal to phase 5's (for information: through
+   the host on gloo, not TP over NVLink; line ``tp_serve``). Run in the
+   same spawn as 4n's TP 2 cases.
 6a-6c. training — ``make_train_step`` from the port's own weights (seed
    0) over one fixed batch (seed 11): 6a h2o-danube-1.8b at full width
-   with 12 of its 24 layers, AdamW, 4 × 1024 tokens, 8 steps; 6b
+   with 6 of its 24 layers, AdamW, 4 × 1024 tokens, 8 steps; 6b
    mixtral-8x7b at full width with 2 layers, Adafactor, ``capacity``, 2 ×
    1024 tokens, 5 steps; 6c seamless-m4t-large-v2 at full width with 12
    + 12 of its 24 + 24 layers, AdamW, 4 × (1024 frames, 256 decoder
    tokens), 5 steps (6a's and 6c's depth halved to keep the script's
-   time once 3h-6f came: their checkpoint I/O took ~200 s). A checkpoint is saved
-   after step 3 (``save_checkpoint`` under build/ckpt), then loaded onto
-   the card and the remaining steps run again. Gates: losses finite and
-   the last below the first; every step's gradient norm finite (so every
-   gradient leaf is); the resumed run's params within 1e-6 of the
-   uninterrupted run's and its losses within 1e-6 relative; B4 launched
+   time once 3h-6f came). 6a saves a checkpoint after step 3
+   (``save_checkpoint`` under build/ckpt), loads it onto the card and
+   runs the remaining steps again; 6b and 6c repeat one loss-and-gradient
+   pass instead, as 6d does (their checkpoint I/O went for 3i-5l's time:
+   6a covers it, and it does not depend on the family). Gates: losses
+   finite and the last below the first; every step's gradient norm finite
+   (so every gradient leaf is); 6a's resumed run's params within 1e-6 of
+   the uninterrupted run's and its losses within 1e-6 relative, 6b's and
+   6c's repeated pass bitwise; B4 launched
    12 times per layer and router chunk a step under capacity, no other
    kernel. Reports s/step (median after the first step), tokens/s, model
    TFLOP/s (6·N·tokens a step; N the active params, the encoder's and the
-   decoder's apart for 6c), peak memory, losses, the checkpoint's bytes
+   decoder's apart for 6c), peak memory, losses, 6a's checkpoint's bytes
    and save/load seconds; 6b also one profiled step's device ms and B4's
    part of it.
 6d-6e. SSM and hybrid training — 6a's loop, AdamW, 5 steps: 6d
    mamba2-1.3b at full depth and width (48 Mamba2 blocks), 4 × 2048
    tokens; 6e zamba2-2.7b at full depth and width (54 blocks, 9
    applications of the shared attention block), 4 × 1024 tokens. No
-   checkpoint (6a-6c cover its I/O, which does not depend on the
-   family): after the steps one loss-and-gradient pass runs twice and
+   checkpoint (6a covers its I/O): after the steps one loss-and-gradient
+   pass runs twice and
    must repeat bit for bit. B5 launched twice per block a step and its
    backward once, no other kernel. Reports 6a's numbers and one profiled
    step's device ms with B5's forward and backward parts.
@@ -378,13 +415,15 @@ nothing of the JAX package. Phases, each printing its own lines:
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5, B5's backward; launches summed over every serving and
 training phase on the card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4l, 4f, 4g,
-5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e (B1 and B2 launch in 4f, 4g,
+4n and 5l (every rank's), 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e (B1
+and B2 launch in 4f, 4g,
 5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i, B4 in 4j and 6b, B5 and its
 backward in 4l, 6d and 6e; 4m, 5k and 6f are also summed alone as B4's,
 B5's and its backward's ``bf16_launches``); each kernel's 3h times as
 ``bf16_*`` (B1 (b) as ``bf16_decode_*``, B3 (f) as ``bf16_chunk_*``, B4
 C=960 as ``bf16_prefill_*`` and its backward as ``bf16_backward_*``, B5
-(h) as ``bf16_hybrid_*``); B1's
+(h) as ``bf16_hybrid_*``); B1's, B2's and B4's 3i steps as
+``per_shard``; B1's
 times at step (a), pages of 128,
 with step (b)'s as ``decode_*``; B3's at step (d), pages of 128, with
 step (f)'s, SDPA's beside, as ``chunk_*``; B2's at step (a), int8, pages
@@ -402,6 +441,7 @@ Any failure raises: the exit code is then non-zero and no result prints.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -416,6 +456,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
@@ -432,7 +473,9 @@ from repro_torch.engine import (Engine, EngineConfig,  # noqa: E402
                                 PagedTransformerExecutor, Request,
                                 RequestState)
 from repro_torch.engine.metrics import summarize  # noqa: E402
-from repro_torch.engine.numerics import ModelTimedExecutor  # noqa: E402
+from repro_torch.engine.numerics import (  # noqa: E402
+    ModelTimedExecutor, assert_same_decisions, capture_schedule,
+    vtc_counters)
 from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
@@ -445,6 +488,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
     dequantize_kv, kv_quant_spec, quantize_kv, raw_pool)
+from repro_torch.launch.mesh import make_test_mesh, spawn  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     mamba_chunk_scan_backward_ref, mamba_chunk_scan_ref, moe_gmm_ref,
     paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
@@ -1405,8 +1449,9 @@ def _counted(cuda: bool, fn):
 class Served:
     """One serving run: its engine and executor, first-token logits by
     request, wall seconds, each kernel's launches in the run, the
-    (horizon, γ) of every multi-step (γ = 0) or speculative dispatch, and
-    the (token rows, layers) of every forward pass."""
+    (horizon, γ) of every multi-step (γ = 0) or speculative dispatch, the
+    (token rows, layers) of every forward pass and the scheduler's
+    decisions (``numerics.SchedTrace``)."""
     eng: Engine
     ex: PagedTransformerExecutor
     first: dict
@@ -1414,6 +1459,7 @@ class Served:
     launches: dict
     multi: list
     forwards: list
+    trace: object
 
     @property
     def tokens(self) -> dict:
@@ -1456,7 +1502,8 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
           mode="fused", horizon=1, gamma=0, draft=None,
           check_sync=True, kv_dtype="fp32", ragged=True,
           moe_impl="exact", clock=None, cache_pages=None,
-          preemption=False) -> Served:
+          preemption=False, mesh=None, cost_shards=1,
+          on_executor=None) -> Served:
     """Serve ``requests`` to completion. On the card, with ``check_sync``,
     every committed horizon and speculative round body runs under torch's
     sync debug mode set to raise: it may not wait for the device. With a
@@ -1464,14 +1511,18 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
     times instead of the wall clock, so that the plans do not depend on
     the device. ``cache_pages`` (not None) attaches a ``PrefixCache`` of
     that many pages on the executor's allocator (0: a disabled cache);
-    ``preemption`` lets the engine evict victims for starving requests."""
+    ``preemption`` lets the engine evict victims for starving requests.
+    With a ``mesh`` this is rank 0 of a sharded executor (the caller stops
+    the other ranks after), its engine at ``cost_shards`` per-shard
+    budgets. ``on_executor(ex)`` runs before the engine starts."""
     ex = PagedTransformerExecutor(cfg, params, num_pages=num_pages,
                                   page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
                                   mode=mode, capture_logits=capture_logits,
                                   kv_dtype=kv_dtype,
                                   ragged_attention=ragged,
-                                  moe_impl=moe_impl, device=device)
+                                  moe_impl=moe_impl, mesh=mesh,
+                                  device=device)
     if draft is not None:
         ex.set_draft(draft)
     forwards: list = []
@@ -1490,6 +1541,8 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
         return out
 
     ex.execute_multi = recorded
+    if on_executor is not None:
+        on_executor(ex)
     slo_ttft, slo_tpot = requests[0].ttft_slo, requests[0].tpot_slo
     if clock is None:
         sched = make_scheduler("fairbatching",
@@ -1506,10 +1559,12 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
                                             tpot_slo=slo_tpot,
                                             commit_horizon=horizon,
                                             speculate=gamma,
-                                            preemption=preemption),
+                                            preemption=preemption,
+                                            cost_shards=cost_shards),
                  prefix_cache=cache)
     for r in requests:
         eng.submit(r)
+    trace = capture_schedule(eng)
     first = {}
 
     def loop() -> float:
@@ -1524,7 +1579,7 @@ def serve(cfg, params, device, requests, *, page_size, num_pages,
     wall, launches = _counted(cuda, loop)
     if eng.has_work:
         raise AssertionError(f"engine still busy after {max_steps} steps")
-    return Served(eng, ex, first, wall, launches, multi, forwards)
+    return Served(eng, ex, first, wall, launches, multi, forwards, trace)
 
 
 PARITY_PAGES = dict(page_size=16, num_pages=64, max_pages_per_seq=8)
@@ -2911,6 +2966,320 @@ def phase_migrate_serve(cfg, device, params) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phases 3i, 4n, 5l: the sharded data plane (tensor and expert parallel)
+# ---------------------------------------------------------------------------
+
+# (TP, H, Hkv) of h2o-danube-1.8b's attention on one rank
+SHARD_HEADS = ((2, 16, 4), (4, 8, 2))
+EP_EXPERTS = 4                   # mixtral-8x7b's experts a rank at TP 2
+
+
+@contextlib.contextmanager
+def attention_heads(h: int, hkv: int):
+    """Phase 3's steps at ``h`` query and ``hkv`` KV heads."""
+    global H, HKV
+    old = H, HKV
+    H, HKV = h, hkv
+    try:
+        yield
+    finally:
+        H, HKV = old
+
+
+def phase_shard_kernels(device, timer) -> list:
+    """Phase 3i, attention: B1 on steps (a) and (b) and B2 in int8 on step
+    (a), pages of 128, at h2o-danube-1.8b's heads a rank at TP 2 (H 16,
+    Hkv 4) and TP 4 (H 8, Hkv 2), with phase 3's and 3c's gates and
+    timing."""
+    recs = []
+    for tp, h, hkv in SHARD_HEADS:
+        with attention_heads(h, hkv):
+            for kind in ("a_mixed", "b_decode"):
+                st = make_step(kind, 128, device)
+                checks = [("paged_attention_ragged",
+                           lambda: check_kernel(st, timer, timed=True))]
+                if kind == "a_mixed":
+                    checks.append(("paged_attention_ragged_quant",
+                                   lambda: check_quant_kernel(st, "int8",
+                                                              timer)))
+                for name, check in checks:
+                    rec = {"kernel": name, "tp": tp, "H": h, "HKV": hkv,
+                           **check()}
+                    _emit("shard_kernel_step", rec)
+                    recs.append(rec)
+                del st
+                if torch.device(device).type == "cuda":
+                    torch.cuda.empty_cache()
+    return recs
+
+
+def shard_moe_steps(by_capacity: dict, cfg) -> list:
+    """Phase 3i, B4: mixtral-8x7b's gate/up and down GEMMs at E = 4 (its
+    experts on one rank at TP 2), at C = 8 and at the largest capacity
+    phase 5d launched B4 at."""
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    steps = []
+    for c in sorted({8, max(by_capacity)}):
+        steps += [(f"ep2_c{c}_gate_up", EP_EXPERTS, c, d, f),
+                  (f"ep2_c{c}_down", EP_EXPERTS, c, f, d)]
+    return steps
+
+
+TP_PARITY_LAYERS = 2             # 4n's depth (of 24 and 32)
+TP_SERVE = dict(n=16, prompt_range=(256, 3072), new_tokens=32, gap=0.05,
+                seed=3, slo=(10.0, 0.25))      # serve-16's traffic (5l)
+TP_PARITY_REQUESTS = dict(n=6, prompt_range=(8, 64), new_tokens=8, gap=0.01,
+                          seed=2, slo=(30.0, 2.0))   # phase 4's
+
+
+def tp_requests(cfg, spec: dict) -> list:
+    return make_requests(cfg, spec["n"], spec["prompt_range"],
+                         spec["new_tokens"], spec["gap"], spec["seed"],
+                         slo=spec["slo"])
+
+
+def _tp_case(rank: int, mesh, case: dict) -> dict:
+    """One case on one rank: rank 0 serves ``case``'s requests through
+    ``serve`` on the sharded executor and stops the others, which replay
+    its dispatches (``serve_worker``). Returns the rank's record."""
+    cfg, device = case["cfg"], case["device"]
+    cuda = torch.device(device).type == "cuda"
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        case["seed"]), device)
+    opts = dict(kv_dtype=case["kv_dtype"], moe_impl=case["moe_impl"],
+                mode=case["mode"], **case["pages"])
+    timing = {"all_reduce_s": 0.0, "broadcast_s": 0.0}
+
+    def timed(ex):
+        """Time every collective (device synchronised either side)."""
+        for name in ("all_reduce", "broadcast"):
+            fn = getattr(ex.tp, name)
+
+            def run(*a, _fn=fn, _key=f"{name}_s"):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                if cuda:
+                    torch.cuda.synchronize()
+                timing[_key] += time.perf_counter() - t0
+                return out
+            setattr(ex.tp, name, run)
+
+    rec = {"rank": rank, "tp": mesh.shape["model"],
+           "backend": dist.get_backend(), "model": cfg.name,
+           "layers": cfg.n_layers, "kv_dtype": case["kv_dtype"],
+           "moe_impl": case["moe_impl"], "mode": case["mode"]}
+    logits = {}
+    if rank == 0:
+        clock = MODEL_CLOCK if case["model_clock"] else None
+        reqs = tp_requests(cfg, case["requests"])
+        if case.get("single_too"):
+            # TP 1: the mesh=None executor on the same weights and plans,
+            # every dispatch's logits kept
+            for key, m in (("single", None), ("mesh", mesh)):
+                out = logits.setdefault(key, [])
+
+                def keep(ex, _out=out):
+                    step = ex._fused_step
+                    ex._fused_step = lambda st, t: (
+                        lambda lg: (_out.append(lg.cpu()), lg)[1])(
+                            step(st, t))
+                run = serve(cfg, params, device, tp_requests(
+                    cfg, case["requests"]), clock=clock, mesh=m,
+                    on_executor=keep, check_sync=False, **opts)
+                if m is not None:
+                    run.ex.stop_workers()
+        else:
+            run = serve(cfg, params, device, reqs, clock=clock, mesh=mesh,
+                        cost_shards=case["cost_shards"],
+                        on_executor=timed if case.get("timed") else None,
+                        **opts)
+            run.ex.stop_workers()
+        del params
+        ex = run.ex
+        launches = run.launches
+        rec.update(tokens=run.tokens, trace=run.trace,
+                   vtc=vtc_counters(run.eng), steps=len(run.eng.steps))
+        if case.get("serve_record"):
+            _check_outputs(run, cfg, case["requests"]["new_tokens"])
+            rec["serve"] = _serve_record(run, reqs, cfg, cuda)
+    else:
+        ex = PagedTransformerExecutor(cfg, params, mesh=mesh, device=device,
+                                      **opts)
+        del params
+        for k in KERNELS.values():
+            k.launches = 0
+        ex.serve_worker()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+    rec.update(dispatches=ex.n_dispatches, all_reduces=ex.tp.all_reduces,
+               kv_heads_a_rank=ex.k_pages.shape[3], launches=launches,
+               **timing)
+    if logits:
+        a, b = logits["single"], logits["mesh"]
+        rec["logits_bitwise"] = len(a) == len(b) > 0 and all(
+            torch.equal(x, y) for x, y in zip(a, b))
+        rec["logits_dispatches"] = len(b)
+    del ex
+    if cuda:
+        _release_memory()
+    return rec
+
+
+def tp_rank(rank: int, world: int, cases: list) -> list:
+    """One rank of phases 4n and 5l, in a process of its own
+    (``launch.mesh.spawn``): every case on a 1 × ``world`` mesh. All ranks
+    share ``cuda:0`` on a one-card machine (gloo); under NCCL on several
+    cards rank r takes ``cuda:r``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = make_test_mesh(data=1, model=world)
+    return [_tp_case(rank, mesh, case) for case in cases]
+
+
+def tp_cases(device, h2o, mix) -> dict:
+    """Phase 4n's and 5l's cases by spawn: (world, backend) → cases."""
+    pages = dict(PARITY_PAGES)
+    small = dataclasses.replace(h2o, n_layers=TP_PARITY_LAYERS)
+    mix2 = dataclasses.replace(mix, n_layers=TP_PARITY_LAYERS)
+
+    def case(cfg, tp, kv="fp32", impl="exact", **kw):
+        return {"cfg": cfg, "device": device, "seed": 1, "kv_dtype": kv,
+                "moe_impl": impl, "pages": pages, "model_clock": True,
+                "cost_shards": tp, "requests": TP_PARITY_REQUESTS,
+                "mode": "fused", **kw}
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    return {
+        (2, "gloo"): [case(small, 2), case(small, 2, "int8"),
+                      case(small, 2, mode="sequential"),
+                      case(mix2, 2), case(mix2, 2, impl="capacity"),
+                      case(h2o, 2, pages=SERVE_PAGES, model_clock=False,
+                           requests=TP_SERVE, seed=0, serve_record=True,
+                           timed=True)],
+        (4, "gloo"): [case(small, 4), case(small, 4, "int8")],
+        (1, backend): [case(small, 1, single_too=True)]}
+
+
+def _tp_references(device, cases: dict) -> dict:
+    """4n's single-device references on the model clock, by (model,
+    layers, kv, impl): sequential (dense, MoE exact) or fused (capacity)
+    runs' tokens, decisions, VTC counters and mode, their executors
+    freed."""
+    refs = {}
+    for cs in cases.values():
+        for c in cs:
+            key = (c["cfg"].name, c["cfg"].n_layers, c["kv_dtype"],
+                   c["moe_impl"])
+            if c.get("serve_record") or c.get("single_too") or key in refs:
+                continue
+            params = init_params(c["cfg"], torch.Generator(
+                device=device).manual_seed(c["seed"]), device)
+            mode = "fused" if c["moe_impl"] == "capacity" else "sequential"
+            run = serve(c["cfg"], params, device,
+                        tp_requests(c["cfg"], c["requests"]), mode=mode,
+                        clock=MODEL_CLOCK, kv_dtype=c["kv_dtype"],
+                        moe_impl=c["moe_impl"], **c["pages"])
+            refs[key] = {"tokens": run.tokens, "trace": run.trace,
+                         "vtc": vtc_counters(run.eng), "mode": mode}
+            del params, run
+            if torch.device(device).type == "cuda":
+                _release_memory()
+    return refs
+
+
+def phase_tp(device, h2o, mix, serve16_tokens: Optional[dict]) -> dict:
+    """Phases 4n and 5l. Spawns the TP 2 and TP 4 ranks on gloo (and TP 1
+    on NCCL on the card) and holds their runs to the single-device ones:
+    tokens, decisions (plans, deferrals, VTC) byte-equal to TP 1, one
+    dispatch a step in fused mode, 2·L + 2 all-reduces a dispatch on every
+    rank, and on every rank L attention launches (B1, B2 in int8, B3 in
+    sequential mode) a dispatch. Adds every rank's launches to the serving
+    counts. Returns 5l's record."""
+    cases = tp_cases(device, h2o, mix)
+    refs = _tp_references(device, cases)
+    cuda = torch.device(device).type == "cuda"
+    serve_rec = None
+    for (world, backend), cs in cases.items():
+        t0 = time.perf_counter()
+        per_rank = spawn(tp_rank, world, backend, cs, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        for i, c in enumerate(cs):
+            ranks = [recs[i] for recs in per_rank]
+            r0, cfg = ranks[0], c["cfg"]
+            fused = c["mode"] == "fused"
+            attn = ("paged_attention" if not fused
+                    else "paged_attention_ragged" if c["kv_dtype"] == "fp32"
+                    else "paged_attention_ragged_quant")
+            if cuda:
+                for r in ranks:
+                    for name, n in r["launches"].items():
+                        SERVING_LAUNCHES[name] += n
+            want_launches = cfg.n_layers * r0["dispatches"] if cuda else 0
+            rec = {"tp": world, "backend": backend, "model": cfg.name,
+                   "layers": cfg.n_layers, "kv_dtype": c["kv_dtype"],
+                   "moe_impl": c["moe_impl"], "mode": c["mode"],
+                   "steps": r0["steps"],
+                   "dispatches": [r["dispatches"] for r in ranks],
+                   "all_reduces": [r["all_reduces"] for r in ranks],
+                   "all_reduces_per_dispatch": 2 * cfg.n_layers + 2,
+                   "kv_heads_a_rank": r0["kv_heads_a_rank"],
+                   "attention_kernel": attn,
+                   "attention_launches": [r["launches"][attn]
+                                          for r in ranks],
+                   "b4_launches": [r["launches"]["moe_gmm"] for r in ranks],
+                   "spawn_s": spawn_s}
+            good = ((r0["dispatches"] == r0["steps"] if fused
+                     else r0["dispatches"] >= r0["steps"])
+                    and all(r["dispatches"] == r0["dispatches"]
+                            and r["all_reduces"] == (2 * cfg.n_layers + 2)
+                            * r["dispatches"]
+                            and r["launches"][attn] == want_launches
+                            for r in ranks))
+            if c["moe_impl"] == "capacity" and cuda:
+                good &= all(r["launches"]["moe_gmm"] > 0 for r in ranks)
+            if c.get("single_too"):
+                rec["logits_bitwise"] = r0["logits_bitwise"]
+                rec["logits_dispatches"] = r0["logits_dispatches"]
+                good &= r0["logits_bitwise"]
+                _emit("tp_parity", rec)
+            elif c.get("serve_record"):
+                s = r0["serve"]
+                rec.update(s, all_reduce_ms_per_step=r0["all_reduce_s"]
+                           * 1e3 / s["steps"],
+                           broadcast_ms_per_step=r0["broadcast_s"] * 1e3
+                           / s["steps"],
+                           collective_share_of_wall=(
+                               r0["all_reduce_s"] + r0["broadcast_s"])
+                           / s["wall_s"])
+                if serve16_tokens is not None:
+                    rec["share_tokens_equal_serve16"] = _share_equal(
+                        r0["tokens"], serve16_tokens)
+                _emit("tp_serve", rec)
+                serve_rec = rec
+            else:
+                ref = refs[(cfg.name, cfg.n_layers, c["kv_dtype"],
+                            c["moe_impl"])]
+                rec["tokens_equal_single_device"] = \
+                    r0["tokens"] == ref["tokens"]
+                rec["reference_mode"] = ref["mode"]
+                good &= rec["tokens_equal_single_device"]
+                if c["moe_impl"] == "exact":
+                    assert_same_decisions(ref["trace"], r0["trace"],
+                                          label=f"TP 1 vs TP {world}")
+                    rec["decisions_equal_tp1"] = True
+                    rec["vtc_equal_tp1"] = r0["vtc"] == ref["vtc"]
+                    good &= rec["vtc_equal_tp1"]
+                _emit("tp_parity", rec)
+            if not good:
+                raise AssertionError(f"TP {world} {cfg.name} "
+                                     f"{c['kv_dtype']} {c['moe_impl']}: "
+                                     f"a gate failed: {rec}")
+    return serve_rec
+
+
+# ---------------------------------------------------------------------------
 # phase 3f: B4's backward GEMMs against autograd through the plain version
 # ---------------------------------------------------------------------------
 
@@ -3335,20 +3704,20 @@ def train_runs() -> list:
     mixtral-8x7b (2 layers, Adafactor, capacity, B 2 × 1024), 6c
     seamless-m4t-large-v2 (12 + 12 of 24 + 24 layers, AdamW, B 4 × (1024
     frames, 256 decoder tokens)), 6d mamba2-1.3b (every layer, AdamW, B 4 × 2048) and
-    6e zamba2-2.7b (every layer, AdamW, B 4 × 1024); 6d and 6e without a
-    checkpoint (6a-6c cover its I/O, which does not depend on the
-    family)."""
+    6e zamba2-2.7b (every layer, AdamW, B 4 × 1024); only 6a with a
+    checkpoint (its I/O does not depend on the family), the others
+    repeat a loss-and-gradient pass."""
     return [TrainRun("6a", dataclasses.replace(get("h2o-danube-1.8b"),
                                                n_layers=6), ModelOpts(),
                      OptConfig(name="adamw"), (4, 1024), 8),
             TrainRun("6b", dataclasses.replace(get("mixtral-8x7b"),
                                                n_layers=2),
                      ModelOpts(moe_impl="capacity"),
-                     OptConfig(name="adafactor"), TRAIN_MOE_BATCH, 5),
+                     OptConfig(name="adafactor"), TRAIN_MOE_BATCH, 5, None),
             TrainRun("6c", dataclasses.replace(
                 get("seamless-m4t-large-v2"), n_layers=12,
                 n_encoder_layers=12), ModelOpts(),
-                     OptConfig(name="adamw"), (4, 1024, 256), 5),
+                     OptConfig(name="adamw"), (4, 1024, 256), 5, None),
             TrainRun("6d", get("mamba2-1.3b"), ModelOpts(),
                      OptConfig(name="adamw"), (4, 2048), 5, None),
             TrainRun("6e", get("zamba2-2.7b"), ModelOpts(),
@@ -4040,6 +4409,7 @@ def main() -> int:
     recs = phase_kernels("cuda", cuda_timer)
     brecs = phase_batched_kernels("cuda", cuda_timer)
     qrecs = phase_quant_kernels("cuda", cuda_timer)
+    tp_recs = phase_shard_kernels("cuda", cuda_timer)
     mrecs = phase_moe_kernels("cuda", cuda_timer)
     brecs_b4 = phase_moe_backward("cuda", cuda_timer)
     srecs = phase_ssm_kernels("cuda", cuda_timer)
@@ -4098,11 +4468,16 @@ def main() -> int:
     phase_migrate_serve(cfg, "cuda", params)
     del params
     _release_memory()
+    phase_tp("cuda", cfg, get("mixtral-8x7b"), serve16_tokens)
+    _release_memory()
     mix = dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_SERVE_LAYERS)
     by_c = dict(phase_moe_serve(mix, "cuda")["b4_launches_by_capacity"])
     _release_memory()
     served_mrecs = phase_moe_kernels("cuda", cuda_timer,
                                      serve_moe_steps(by_c, mix))
+    _release_memory()
+    shard_mrecs = phase_moe_kernels("cuda", cuda_timer,
+                                    shard_moe_steps(by_c, mix))
     _release_memory()
     phase_decoder_serve(get("mamba2-1.3b"), "cuda", SSM_SERVE)
     _release_memory()
@@ -4137,19 +4512,29 @@ def main() -> int:
                     if r["step"] == "u_c960_gate_up")
     main_grec, long_grec, hyb_grec = grecs   # 3g (l), (m), (h)
     b16_b1, b16_b3 = b16["paged_attention_ragged"], b16["paged_attention"]
+
+    def per_shard(recs, kernel=None) -> list:
+        """3i's steps of one kernel, for its row."""
+        return [{k: r[k] for k in ("tp", "H", "HKV", "E", "C", "step",
+                                   "ms", "graph_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err") if k in r}
+                for r in recs if kernel is None or r["kernel"] == kernel]
     b16_b4, b16_b5 = b16["moe_gmm"], b16["mamba2_scan"]
     kernels = [{
         "name": "paged_attention_ragged", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention_ragged.cu",
         "replaces": "src/repro/kernels/paged_attention.py:243",
         "launches": SERVING_LAUNCHES["paged_attention_ragged"],
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "max_abs_err": max(r["max_abs_err"] for r in recs + [
+            r for r in tp_recs if r["kernel"] == "paged_attention_ragged"]),
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": main_rec["library_ms"],
         "graph_ms": main_rec["graph_ms"], "decode_ms": dec_rec["ms"],
         "decode_graph_ms": dec_rec["graph_ms"],
         "decode_bound_ms": dec_rec["bound_ms"],
+        "per_shard": per_shard(tp_recs, "paged_attention_ragged"),
         **bf16_fields(b16_b1[0]), **bf16_fields(b16_b1[1], "bf16_decode_"),
         "bf16_max_abs_err": max(r["max_abs_err"] for r in b16_b1)}, {
         "name": "paged_attention", "route": "cuda",
@@ -4171,7 +4556,9 @@ def main() -> int:
                   "paged_attention_ragged_quant.cu",
         "replaces": "src/repro/kernels/paged_attention.py:309",
         "launches": SERVING_LAUNCHES["paged_attention_ragged_quant"],
-        "max_abs_err": max(r["max_abs_err"] for r in qrecs),
+        "max_abs_err": max(r["max_abs_err"] for r in qrecs + [
+            r for r in tp_recs
+            if r["kernel"] == "paged_attention_ragged_quant"]),
         "ms": main_qrec["ms"], "plain_ms": main_qrec["plain_ms"],
         "bound_ms": main_qrec["bound_ms"], "bound_by": main_qrec["bound_by"],
         "library_ms": main_qrec["library_ms"],
@@ -4179,12 +4566,14 @@ def main() -> int:
         "decode_ms": dec_qrec["ms"], "decode_graph_ms": dec_qrec["graph_ms"],
         "decode_b1_ms": dec_qrec["b1_ms"],
         "decode_bound_ms": dec_qrec["bound_ms"],
+        "per_shard": per_shard(tp_recs, "paged_attention_ragged_quant"),
         **bf16_fields(b16["paged_attention_ragged_quant"][0])}, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:38",
         "launches": SERVING_LAUNCHES["moe_gmm"],
-        "max_abs_err": max(r["max_abs_err"] for r in mrecs + brecs_b4),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in mrecs + brecs_b4 + shard_mrecs),
         "ms": main_mrec["ms"], "plain_ms": main_mrec["plain_ms"],
         "bound_ms": main_mrec["bound_ms"], "bound_by": main_mrec["bound_by"],
         "library_ms": main_mrec["library_ms"],
@@ -4200,6 +4589,7 @@ def main() -> int:
         "backward_bound_ms": bwd_mrec["bound_ms"],
         "backward_library_ms": bwd_mrec["library_ms"],
         "backward_library_graph_ms": bwd_mrec["library_graph_ms"],
+        "per_shard": per_shard(shard_mrecs),
         "bf16_launches": bf16_launches["moe_gmm"],
         **bf16_fields(b16_b4[0]), **bf16_fields(b16_b4[1], "bf16_prefill_"),
         **bf16_fields(b16_b4[2], "bf16_backward_"),

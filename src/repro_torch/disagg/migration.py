@@ -98,8 +98,12 @@ def capture_kv(executor, req_id: int) -> Optional[KVPayload]:
     """Gather ``req_id``'s pages from a real executor (None for sim).
 
     Must run BEFORE ``Engine.export_request`` — export releases the table.
+    Refused for a sharded executor (ROADMAP A13b).
     """
     ex = _data_plane(executor)
+    if getattr(ex, "mesh", None) is not None:
+        raise NotImplementedError("KV migration (capture_kv) under a mesh "
+                                  "is not ported yet (ROADMAP A13b)")
     alloc = getattr(ex, "alloc", None)
     if alloc is None or not hasattr(ex, "k_pages"):
         return None
@@ -163,8 +167,12 @@ def install_kv_pages(executor, prefix_cache, req, payload: KVPayload,
     or table longer than its per-seq cap) — the caller falls back to
     recompute. On success the request's pages bitwise-equal the source's
     and the prompt's full blocks are published to the destination cache.
+    Refused for a sharded executor (ROADMAP A13b).
     """
     ex = _data_plane(executor)
+    if getattr(ex, "mesh", None) is not None:
+        raise NotImplementedError("KV migration (install_kv_pages) under a "
+                                  "mesh is not ported yet (ROADMAP A13b)")
     alloc = ex.alloc
     assert alloc.block_size == payload.block_size, \
         "cross-page-size migration unsupported"

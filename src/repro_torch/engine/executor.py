@@ -37,9 +37,28 @@ A ``cache.PrefixCache`` built on the executor's allocator attaches with
 ``attach_cache``: cache hits fork shared pages into a request's table, and
 an extend that runs out of pages evicts cached pages and retries.
 
-Not ported yet (raises ``NotImplementedError``): ``mesh`` sharding. The
-SSM and hybrid families are refused as the JAX executor refuses them: they
-run through ``models.lm.DecoderLM``.
+With ``mesh`` (a ``launch.mesh.Mesh`` over ``torch.distributed`` process
+groups, one executor a rank) the data plane shards over the mesh's
+``model`` axis (DESIGN.md §17): each rank holds its share of the params
+(``shard_params`` over ``DecoderLM.axes()`` and ``serving_rules(mesh,
+cfg)``) and of the K/V pools and scale pages on the kv-head dim (every KV
+head where ``n_kv_heads % TP != 0``), and completes each partial layer
+with an all-reduce (``distributed.tp``: 2·L + 2 a dispatch where every
+dimension is sharded). Rank 0 owns
+the host side (the engine drives it, and its ``BlockAllocator`` hands out
+the global page ids every rank indexes); for each dispatch it broadcasts
+one step message — the mode, the bucket key and the packed int32 buffer of
+its one host→device copy — and ranks 1 and up replay it in
+``serve_worker()`` until rank 0's ``stop_workers()``. Covered: the fused
+and sequential modes, fp32 / int8 / fp8-e4m3 KV, dense and MoE (``exact``:
+each rank's experts weighted by the global router's gates; ``capacity``:
+the dispatch from the replicated router, B4 over the rank's experts).
+Refused under a mesh (``NotImplementedError``, ROADMAP A13b): a data axis
+above 1, ``execute_multi`` and speculative decode, ``attach_cache``, and
+KV migration.
+
+The SSM and hybrid families are refused as the JAX executor refuses them:
+they run through ``models.lm.DecoderLM``.
 """
 from __future__ import annotations
 
@@ -55,11 +74,13 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..core.cost_model import LinearCostModel
 from ..core.types import BatchPlan
+from ..distributed.tp import ONE_DEVICE, TensorParallel
 from ..kernels.ops import (paged_attention_op, paged_attention_quant_op,
                            paged_attention_ragged_op,
                            paged_attention_ragged_quant_op)
 from ..kernels.quant import QuantSpec, kv_quant_spec, quantize_kv, raw_pool
 from ..models.layers import attn_qkv, layer_ffn
+from ..models.lm import DecoderLM
 from ..models.module import rmsnorm
 from ..models.moe import MOE_IMPLS
 from ..models.weights import params_to
@@ -158,9 +179,16 @@ class _PackedSeq:
     emits: bool             # produces an output token this step
 
 
-def _later(what: str, where: str) -> NotImplementedError:
+def mesh_refusal(what: str) -> NotImplementedError:
+    """The error of a path the sharded data plane does not cover yet."""
     return NotImplementedError(
-        f"{what} is not ported to PyTorch yet ({where}, a later slice)")
+        f"{what} under a mesh is not ported yet (ROADMAP A13b)")
+
+
+# the step message rank 0 broadcasts under a mesh: an int64 header (the
+# op and its bucket key), then the dispatch's packed int32 buffer
+_STOP, _FUSED, _CHUNK, _DECODE = range(4)
+_HEADER = 5
 
 
 def kv_slots(table, positions, page_size: int, valid=None):
@@ -206,7 +234,8 @@ def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
                   positions, tables, ctx_lens, page_size: int, valid=None,
                   n_layers: Optional[int] = None,
                   scales: Optional[ScalePools] = None,
-                  moe_impl: str = "exact"):
+                  moe_impl: str = "exact",
+                  tp: Optional[TensorParallel] = None):
     """Decoder forward over paged KV, one batched attention launch per
     layer. x: (B, T, d); positions: (B, T); tables: (B, n_pages); ctx_lens:
     (B,) int32; ``layers`` the per-layer weight dicts over the pools'
@@ -216,8 +245,11 @@ def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
     scales on trash scale page 0, and attention dequantizes. K/V writes
     land in the pools in place (``index_put_``), where JAX's ``.at[].set``
     returns new pools; their (page, slot) targets are the same in every
-    layer, so they are gathered once. Returns the hidden states (B, T,
+    layer, so they are gathered once. Under ``tp`` the layers and pools
+    are one rank's shard, ``cfg`` is ``tp.local_cfg``, and the o-proj and
+    FFN end in ``tp``'s all-reduces (``layer_tail``). Returns the hidden states (B, T,
     d)."""
+    par = ONE_DEVICE if tp is None else tp
     q_starts = positions[:, 0].contiguous()
     idx = kv_slots(tables, positions, page_size, valid)
     spec = sidx = sk = sv = None
@@ -234,6 +266,7 @@ def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
                    sidx)
         scatter_kv(v_pages[l], v.reshape(-1, *v.shape[2:]), idx, spec, sv,
                    sidx)
+        q = par.attention_q(q)
         if scales is None:
             o = paged_attention_op(q, k_pages[l], v_pages[l], tables,
                                    ctx_lens, q_starts, window=cfg.window)
@@ -241,9 +274,20 @@ def paged_forward(cfg: ArchConfig, layers: list, k_pages, v_pages, x,
             o = paged_attention_quant_op(q, k_pages[l], v_pages[l], sk, sv,
                                          tables, scales.tables, ctx_lens,
                                          q_starts, window=cfg.window)
-        x = x + o.reshape(*x.shape[:2], cfg.q_dim) @ lp["attn"]["wo"]
-        x = layer_ffn(cfg, lp, x, moe_impl)
+        x = layer_tail(cfg, lp, x, o, moe_impl, par)
     return x
+
+
+def layer_tail(cfg: ArchConfig, lp: dict, x, o, moe_impl: str,
+               par=ONE_DEVICE):
+    """A layer after its attention: the residual o-proj of ``o`` (rows of
+    x, heads, D) and the FFN block. ``par`` is the executor's
+    ``TensorParallel`` under a mesh (its heads' share of the o-proj and
+    its FFN share, each summed over the ranks), else ``ONE_DEVICE``."""
+    y = par.own_heads(o).reshape(*x.shape[:-1], cfg.q_dim) @ lp["attn"]["wo"]
+    x = x + par.reduce_heads(y)
+    return layer_ffn(cfg, lp, x, moe_impl, experts=par.experts,
+                     reduce=par.reduce_ffn)
 
 
 def layer_views(params: dict, n_layers: int) -> list:
@@ -263,8 +307,9 @@ class PagedTransformerExecutor:
 
     ``params`` is the JAX package's parameter tree as tensors
     (``models.weights.params_from_numpy`` or ``init_params``); it is moved
-    to ``device``. ``device=None`` means the CUDA card and raises without
-    one; ``device="cpu"`` runs the plain PyTorch path.
+    to ``device`` (under a ``mesh``, this rank's share of it).
+    ``device=None`` means the CUDA card and raises without one;
+    ``device="cpu"`` runs the plain PyTorch path.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_pages: int = 256,
@@ -280,8 +325,6 @@ class PagedTransformerExecutor:
         self.device = resolve_device(device)
         if mode not in ("fused", "sequential"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mesh is not None:
-            raise _later("mesh sharding", "queue A13")
         if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
             raise NotImplementedError(
                 f"the paged executor serves the dense and MoE families, as "
@@ -297,6 +340,18 @@ class PagedTransformerExecutor:
         self.cfg = cfg
         self.mode = mode
         self.page_size = page_size
+        # -- mesh sharding (DESIGN.md §17) -----------------------------
+        self.mesh = mesh
+        self.tp = None if mesh is None else TensorParallel(mesh, cfg)
+        # model-axis shards this data plane divides per-token compute over:
+        # the scale factor of per-shard scheduler budgets
+        # (EngineConfig.cost_shards, cost_model.per_shard_model)
+        self.n_shards = 1 if mesh is None else mesh.shape["model"]
+        # the config this rank's attention runs at (its heads)
+        self._lcfg = cfg if self.tp is None else self.tp.local_cfg
+        if self.tp is not None:
+            params = self.tp.shard(params,
+                                   DecoderLM(cfg, device=self.device).axes())
         self.params = params_to(params, self.device)
         self._layers = layer_views(self.params, cfg.n_layers)
         # fused-step attention backend (DESIGN.md §11): the packed stream
@@ -312,8 +367,10 @@ class PagedTransformerExecutor:
         reserved = self.alloc.extend(-1, page_size)
         assert reserved == [0]
         self.max_pages = max_pages_per_seq
-        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
-                 cfg.head_dim)
+        # under a mesh, this rank's kv heads: the page and slot dims stay
+        # whole, so the allocator's global page ids index every rank alike
+        shape = (cfg.n_layers, num_pages, page_size,
+                 self._lcfg.n_kv_heads, cfg.head_dim)
         # quantized paged KV (DESIGN.md §14): values stored int8/fp8 in the
         # data pages, per-(token, kv-head) f32 scales in the allocator's
         # scale pages; None = unquantized fp32 storage
@@ -337,6 +394,10 @@ class PagedTransformerExecutor:
             # pad tokens redirect scales to the trash page's scale page,
             # which the construction order above pins to id 0
             assert self.alloc.scale_of[0] == 0
+        if self.tp is not None:
+            # a group's first collective opens its communicator (NCCL: ~1 s
+            # on 2-4 cards): part of set-up, not of the first dispatch
+            self.tp.broadcast(torch.zeros(1, device=self.device))
         # speculative decode (DESIGN.md §18): a draft adapter installed via
         # set_draft() enables execute_multi(speculate=γ); force_reject
         # zeroes every acceptance on the device (the parity edge case)
@@ -365,11 +426,16 @@ class PagedTransformerExecutor:
     # ------------------------------------------------------------------
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.embed(self.params["embed"], tokens)
         return self.params["embed"][tokens.long()]
 
     def _head(self, h_last: torch.Tensor) -> torch.Tensor:
         p = self.params
-        return rmsnorm(h_last, p["ln_f"], self.cfg.norm_eps) @ p["head"]
+        h = rmsnorm(h_last, p["ln_f"], self.cfg.norm_eps)
+        if self.tp is not None:
+            return self.tp.logits(h, p["head"])
+        return h @ p["head"]
 
     def _forward(self, x, positions, tables, ctx_lens, valid=None,
                  n_layers=None, stables=None):
@@ -378,10 +444,10 @@ class PagedTransformerExecutor:
         are quantized."""
         scales = None if self.qspec is None else ScalePools(
             self.qspec, self.k_scales, self.v_scales, stables)
-        return paged_forward(self.cfg, self._layers, self.k_pages,
+        return paged_forward(self._lcfg, self._layers, self.k_pages,
                              self.v_pages, x, positions, tables, ctx_lens,
                              self.page_size, valid, n_layers, scales,
-                             self.moe_impl)
+                             self.moe_impl, self.tp)
 
     @torch.no_grad()
     def _chunk_step(self, st: dict, n_valid: int) -> torch.Tensor:
@@ -513,9 +579,10 @@ class PagedTransformerExecutor:
         routing (DESIGN.md §14). Per layer: one K/V scatter for every
         sequence's writes and one attention launch; at the top one head
         projection over each sequence's last-token hidden state. Returns
-        the logits (S, vocab).
+        the logits (S, vocab). Under a mesh every rank runs it on its shard,
+        with ``tp``'s all-reduces after the o-proj and the FFN.
         """
-        cfg = self.cfg
+        cfg, par = self._lcfg, ONE_DEVICE if self.tp is None else self.tp
         spec = self.qspec
         x = self._embed(st["tokens"])                      # (T, d)
         pos2d = st["positions"][None]
@@ -537,17 +604,18 @@ class PagedTransformerExecutor:
             # duplicates are harmless because attention never reads them.
             scatter_kv(kp, k[0], idx, spec, sk, sidx)
             scatter_kv(vp, v[0], idx, spec, sv, sidx)
+            q = par.attention_q(q[0])
             if self.ragged_attention:
                 meta = (st["ctx"], st["q_starts"], st["q_lens"], st["pos0"])
                 if spec is None:
-                    o = paged_attention_ragged_op(q[0], kp, vp, st["tables"],
+                    o = paged_attention_ragged_op(q, kp, vp, st["tables"],
                                                   *meta, window=cfg.window)
                 else:
                     o = paged_attention_ragged_quant_op(
-                        q[0], kp, vp, sk, sv, st["tables"], st["stables"],
+                        q, kp, vp, sk, sv, st["tables"], st["stables"],
                         *meta, window=cfg.window)
             else:
-                qv = q[0][seq_gather]
+                qv = q[seq_gather]
                 if spec is None:
                     ov = paged_attention_op(qv, kp, vp, st["tables"],
                                             st["ctx"], st["pos0"],
@@ -557,16 +625,17 @@ class PagedTransformerExecutor:
                         qv, kp, vp, sk, sv, st["tables"], st["stables"],
                         st["ctx"], st["pos0"], window=cfg.window)
                 o = ov.reshape(-1, *ov.shape[2:])[pack_gather]
-            x = x + o.reshape(t_bucket, cfg.q_dim) @ lp["attn"]["wo"]
             # under "capacity" the bucket's pad rows route too, after the
             # real tokens: capacity is sized from t_bucket, as in JAX
-            x = layer_ffn(cfg, lp, x, self.moe_impl)
+            x = layer_tail(cfg, lp, x, o, self.moe_impl, par)
         return self._head(x[st["last_idx"].long()])        # (S, vocab)
 
     # ------------------------------------------------------------------
 
     def attach_cache(self, prefix_cache) -> None:
         """Wire a ``PrefixCache`` built on this executor's allocator."""
+        if self.tp is not None:
+            raise mesh_refusal("a prefix cache")
         assert prefix_cache.alloc is self.alloc, \
             "prefix cache must share the executor's BlockAllocator"
         self.prefix_cache = prefix_cache
@@ -595,6 +664,9 @@ class PagedTransformerExecutor:
         paired each COW'd data page with a fresh scale page, so values and
         their dequant scales stay in lock-step."""
         old, new, s_old, s_new = self.alloc.pop_cow_events_batched()
+        if old and self.tp is not None:
+            # only forks (prefix cache, migration) make COW events
+            raise mesh_refusal("a copy-on-write page copy")
         if old:
             def ids(a):
                 return torch.as_tensor(a, dtype=torch.long,
@@ -620,21 +692,117 @@ class PagedTransformerExecutor:
     # staging: every dispatch's inputs go to the device in one copy
     # ------------------------------------------------------------------
 
-    def _to_device(self, flat: np.ndarray, views: dict) -> dict:
-        """One host→device copy of the staging buffer, cut like ``views``."""
-        buf = torch.from_numpy(flat).to(self.device)
+    @staticmethod
+    def _cut(buf: torch.Tensor, shapes: dict) -> dict:
+        """A flat device buffer cut into named tensors of ``shapes``."""
         out, off = {}, 0
-        for name, a in views.items():
-            out[name] = buf[off:off + a.size].view(a.shape)
-            off += a.size
+        for name, shape in shapes.items():
+            n = math.prod(shape)
+            out[name] = buf[off:off + n].view(shape)
+            off += n
         return out
 
+    @staticmethod
+    def _alloc(shapes: dict) -> tuple[np.ndarray, dict]:
+        """A zeroed int32 staging buffer cut into named views of
+        ``shapes``."""
+        flat = np.zeros(sum(math.prod(s) for s in shapes.values()), np.int32)
+        views, off = {}, 0
+        for name, shape in shapes.items():
+            n = math.prod(shape)
+            views[name] = flat[off:off + n].reshape(shape)
+            off += n
+        return flat, views
+
+    def _to_device(self, flat: np.ndarray, views: dict, op: int = _STOP,
+                   key: tuple = ()) -> dict:
+        """One host→device copy of the staging buffer, cut like ``views``.
+        Under a mesh the buffer then goes to every rank, after a header
+        naming the dispatch (``op``) and its bucket ``key``: the builders
+        of each op allocate ``views`` from ``_op_shapes(op, key)``, from
+        which the other ranks cut it alike."""
+        buf = torch.from_numpy(flat).to(self.device)
+        if self.tp is not None:
+            if op == _STOP:
+                raise ValueError("a dispatch under a mesh names its op")
+            self._send_header(op, key)
+            self.tp.broadcast(buf)
+        return self._cut(buf, {name: a.shape for name, a in views.items()})
+
     def _stage(self, arrays: dict) -> dict:
-        """Named int32 arrays → device tensors, in one host→device copy."""
+        """Named int32 arrays → device tensors, in one host→device copy
+        (a path no mesh runs)."""
         flat = np.concatenate([np.asarray(a, np.int32).ravel()
                                for a in arrays.values()])
         views = {k: np.asarray(a) for k, a in arrays.items()}
         return self._to_device(flat, views)
+
+    # ------------------------------------------------------------------
+    # the step message under a mesh (DESIGN.md §17)
+    # ------------------------------------------------------------------
+
+    def _op_shapes(self, op: int, key: tuple) -> dict:
+        """The named int32 arrays, in staging order, of a dispatch of kind
+        ``op`` at bucket ``key``: ``_FUSED`` (t, s, tq, pg buckets),
+        ``_CHUNK`` (padded tokens, real tokens) or ``_DECODE`` (rows). The
+        one definition of the step message's layout: rank 0 stages into
+        it, the other ranks cut the broadcast by it."""
+        quant = self.qspec is not None
+        if op == _FUSED:
+            return self._fused_shapes(*key[:4])
+        if op == _CHUNK:
+            n_tok = key[0]
+            shapes = {"tokens": (n_tok,), "positions": (n_tok,),
+                      "table": (self.max_pages,), "ctx": (1,)}
+            if quant:
+                shapes["stable"] = (self.max_pages,)
+            return shapes
+        if op == _DECODE:
+            bsz = key[0]
+            shapes = {"tokens": (bsz,), "positions": (bsz,), "ctx": (bsz,),
+                      "tables": (bsz, self.max_pages)}
+            if quant:
+                shapes["stables"] = (bsz, self.max_pages)
+            return shapes
+        raise ValueError(f"unknown op {op}")
+
+    def _send_header(self, op: int, key: tuple) -> None:
+        header = torch.zeros(_HEADER, dtype=torch.int64, device=self.device)
+        header[0] = op
+        header[1:1 + len(key)] = torch.as_tensor(key, dtype=torch.int64)
+        self.tp.broadcast(header)
+
+    def stop_workers(self) -> None:
+        """Rank 0 under a mesh: end every other rank's ``serve_worker``."""
+        if self.tp is None or self.tp.rank != 0:
+            raise ValueError("stop_workers runs on rank 0 of a mesh")
+        self._send_header(_STOP, ())
+
+    def serve_worker(self) -> int:
+        """Ranks 1 and up under a mesh: run each dispatch rank 0 broadcasts
+        (its collectives pair with rank 0's) until its stop message.
+        Returns the dispatches run."""
+        if self.tp is None or self.tp.rank == 0:
+            raise ValueError("serve_worker runs on ranks 1 and up of a mesh")
+        n = 0
+        while True:
+            header = torch.empty(_HEADER, dtype=torch.int64,
+                                 device=self.device)
+            op, *key = self.tp.broadcast(header).tolist()
+            if op == _STOP:
+                return n
+            shapes = self._op_shapes(op, key)
+            buf = torch.empty(sum(math.prod(s) for s in shapes.values()),
+                              dtype=torch.int32, device=self.device)
+            st = self._cut(self.tp.broadcast(buf), shapes)
+            self.n_dispatches += 1
+            if op == _FUSED:
+                self._fused_step(st, key[0])
+            elif op == _CHUNK:
+                self._chunk_step(st, key[1])
+            else:
+                self._decode_step(st)
+            n += 1
 
     def _table(self, req_id: int) -> np.ndarray:
         """The request's block table, zero-padded (→ trash page 0) to
@@ -652,15 +820,16 @@ class PagedTransformerExecutor:
 
     def _stage_decode(self, ids: list, requests, tokens: list,
                       bsz: int, **extra) -> dict:
-        """A decode batch padded to ``bsz`` rows: tokens (the fed-back
-        ones), positions, ctx (B,), tables (and when quantized stables)
-        (B, max_pages), plus ``extra`` (B,) columns whose pad rows are 0.
+        """A decode batch padded to ``bsz`` rows, laid out by
+        ``_op_shapes(_DECODE)``: tokens (the fed-back ones), positions,
+        ctx (B,), tables (and when quantized stables) (B, max_pages), plus
+        ``extra`` (B,) columns whose pad rows are 0 (paths no mesh runs).
         Pad rows read and write only the trash page and its scale page
         (table 0, position 0, context 1)."""
-        a = {"tokens": np.zeros(bsz, np.int32),
-             "positions": np.zeros(bsz, np.int32),
-             "ctx": np.ones(bsz, np.int32),
-             "tables": np.zeros((bsz, self.max_pages), np.int32)}
+        shapes = self._op_shapes(_DECODE, (bsz,))
+        shapes.update({name: (bsz,) for name in extra})
+        flat, a = self._alloc(shapes)
+        a["ctx"][:] = 1
         for i, rid in enumerate(ids):
             req = requests[rid]
             a["tokens"][i] = tokens[i]
@@ -669,14 +838,11 @@ class PagedTransformerExecutor:
             a["positions"][i] = req.context - 1
             a["ctx"][i] = req.context
             a["tables"][i] = self._table(rid)
-        if self.qspec is not None:
-            a["stables"] = np.zeros((bsz, self.max_pages), np.int32)
-            for i, rid in enumerate(ids):
+            if self.qspec is not None:
                 a["stables"][i] = self._stable(rid)
         for name, col in extra.items():
-            a[name] = np.zeros(bsz, np.int32)
             a[name][:len(col)] = col
-        return self._stage(a)
+        return self._to_device(flat, a, _STOP if extra else _DECODE, (bsz,))
 
     @staticmethod
     def _fed_back(req) -> int:
@@ -688,11 +854,13 @@ class PagedTransformerExecutor:
 
     def set_draft(self, draft) -> None:
         """Install a draft adapter (``spec_decode``); enables
-        ``execute_multi(speculate=γ)``. On a MoE target a
+        ``execute_multi(speculate=γ)`` (not under a mesh). On a MoE target a
         ``TruncatedSelfDraft`` runs the target's own FFN under the
         executor's ``moe_impl`` (kernel B4 under ``"capacity"``), as the JAX
         draft runs the target's ``_forward``; a ``SmallModelDraft`` asserts
         a dense draft arch in its constructor."""
+        if self.tp is not None:
+            raise mesh_refusal("speculative decode")
         draft.bind(self)
         self.draft = draft
 
@@ -720,6 +888,8 @@ class PagedTransformerExecutor:
         per-step logits never leave the device — and raises loudly rather
         than silently returning stale ``last_logits``.
         """
+        if self.tp is not None:
+            raise mesh_refusal("committed multi-step decode (execute_multi)")
         if self.capture_logits:
             raise ValueError(
                 "capture_logits is not supported on the multi-step/"
@@ -862,6 +1032,12 @@ class PagedTransformerExecutor:
         if hit is not None:
             hit[0].fill(0)
             return hit
+        self._staging[key] = self._alloc(self._fused_shapes(*key))
+        return self._staging[key]
+
+    def _fused_shapes(self, t_bucket: int, s_bucket: int, tq_bucket: int,
+                      pg_bucket: int) -> dict:
+        """The fused step's staged arrays and their shapes, in order."""
         shapes = {"tokens": (t_bucket,), "positions": (t_bucket,),
                   "tok_pages": (t_bucket,), "tok_slots": (t_bucket,),
                   "tables": (s_bucket, pg_bucket), "ctx": (s_bucket,),
@@ -873,14 +1049,7 @@ class PagedTransformerExecutor:
         if self.qspec is not None:
             shapes.update(tok_spages=(t_bucket,),
                           stables=(s_bucket, pg_bucket))
-        flat = np.zeros(sum(math.prod(s) for s in shapes.values()), np.int32)
-        views, off = {}, 0
-        for name, shape in shapes.items():
-            n = math.prod(shape)
-            views[name] = flat[off:off + n].reshape(shape)
-            off += n
-        self._staging[key] = (flat, views)
-        return flat, views
+        return shapes
 
     def _execute_fused(self, plan: BatchPlan, requests,
                        now: float) -> tuple[float, dict]:
@@ -960,7 +1129,10 @@ class PagedTransformerExecutor:
         self.n_dispatches += 1
         self.compile_keys.add(("fused", t_bucket, s_bucket, tq_bucket,
                                pg_bucket))
-        logits = self._fused_step(self._to_device(flat, st), t_bucket)
+        logits = self._fused_step(
+            self._to_device(flat, st, _FUSED,
+                            (t_bucket, s_bucket, tq_bucket, pg_bucket)),
+            t_bucket)
         # the argmax copy to the host waits for the device, so the step
         # time below covers the whole step even when nothing emits
         nxt = logits.argmax(-1).cpu().numpy()
@@ -990,14 +1162,15 @@ class PagedTransformerExecutor:
                 continue
             chunk = req.tokens[req.prefilled:req.prefilled + it.n_tokens]
             n_tok = _bucket(len(chunk), 16)
-            arrays = {
-                "tokens": chunk + [0] * (n_tok - len(chunk)),
-                "positions": np.arange(req.prefilled, req.prefilled + n_tok),
-                "table": self._table(it.req_id),
-                "ctx": [req.prefilled + len(chunk)]}
+            key = (n_tok, len(chunk))
+            flat, a = self._alloc(self._op_shapes(_CHUNK, key))
+            a["tokens"][:len(chunk)] = chunk
+            a["positions"][:] = np.arange(req.prefilled, req.prefilled + n_tok)
+            a["table"][:] = self._table(it.req_id)
+            a["ctx"][0] = req.prefilled + len(chunk)
             if self.qspec is not None:
-                arrays["stable"] = self._stable(it.req_id)
-            st = self._stage(arrays)
+                a["stable"][:] = self._stable(it.req_id)
+            st = self._to_device(flat, a, _CHUNK, key)
             self.n_dispatches += 1
             self.compile_keys.add(("chunk", n_tok))
             logits = self._chunk_step(st, len(chunk))

@@ -55,6 +55,32 @@ class EncDecLM:
         return init_params(self.cfg, generator, self.device,
                            self.opts.param_dtype)
 
+    def axes(self) -> dict:
+        """Logical sharding axes, same structure as params."""
+        lead = (None,)
+        attn = {k: lead + v for k, v in L.ATTN_AXES.items()}
+        mlp = {k: lead + v for k, v in L.MLP_AXES.items()}
+        enc = {"attn": attn, "ln1": lead + ("embed",), "mlp": mlp,
+               "ln2": lead + ("embed",)}
+        dec = dict(enc)
+        dec["cross"] = attn
+        dec["lnx"] = lead + ("embed",)
+        return {"embed": ("vocab", "embed"),
+                "enc_layers": enc, "enc_ln_f": ("embed",),
+                "dec_layers": dec, "ln_f": ("embed",),
+                "head": ("embed", "vocab")}
+
+    def cache_axes(self) -> dict:
+        """Logical axes tree matching init_cache's structure."""
+        kvax = (None, "cache_batch", "cache_seq", "kv_heads", None)
+        return {
+            "pos": ("cache_batch",),
+            "kv": {"k": kvax, "v": kvax,
+                   "kv_pos": ("cache_batch", "cache_seq")},
+            "cross_k": kvax, "cross_v": kvax,
+            "memory_pos": ("cache_batch", "cache_seq"),
+        }
+
     # ------------------------------------------------------------------
 
     @staticmethod

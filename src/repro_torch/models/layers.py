@@ -14,8 +14,10 @@ does the rest. A decode step writes its token into the cache in place,
 where JAX's ``.at[].set`` returns new arrays (the serving path donates the
 cache, so XLA updates it in place too). ``cross_attn_apply`` is the
 encoder-decoder's cross-attention over the encoder memory; the parameter
-initializers are subtrees of ``weights.init_params``; there are no sharding
-constraints (the port has no mesh, ROADMAP A13).
+initializers are subtrees of ``weights.init_params``. ``ATTN_AXES`` and
+``MLP_AXES`` are the weights' logical sharding axes, as in JAX; the layers
+carry no sharding constraints: under a mesh the paged executor runs the
+collectives itself (``distributed.tp``).
 """
 from __future__ import annotations
 
@@ -31,23 +33,46 @@ from .moe import moe_capacity, moe_dense_exact
 from .rope import apply_rope
 
 
+ATTN_AXES = {
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"),
+}
+
+
+MLP_AXES = {
+    "w_gate": ("embed", "ffn"),
+    "w_up": ("embed", "ffn"),
+    "w_down": ("ffn", "embed"),
+}
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
 
 
+def _same(y: torch.Tensor) -> torch.Tensor:
+    return y
+
+
 def layer_ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor,
-              moe_impl: str = "exact") -> torch.Tensor:
+              moe_impl: str = "exact", experts: Optional[tuple] = None,
+              reduce=_same) -> torch.Tensor:
     """Residual FFN block: the gated MLP, or for MoE archs ``moe_impl``'s
     FFN over the flattened tokens — every row of x, padding included, as
     the JAX executor (``_layer_ffn``) and ``DecoderLM`` (``_ffn``) route
-    them."""
+    them. Under a mesh ``lp`` holds one rank's FFN columns, or its
+    ``experts`` (global ids [lo, hi)), and ``reduce`` sums the partial
+    output over the ranks before the residual."""
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is None:
-        return x + mlp_apply(lp["mlp"], h)
+        return x + reduce(mlp_apply(lp["mlp"], h))
     moe_fn = moe_capacity if moe_impl == "capacity" else moe_dense_exact
-    y = moe_fn(h.reshape(-1, h.shape[-1]), lp["moe"], cfg.moe)
-    return x + y.reshape(h.shape)
+    y = moe_fn(h.reshape(-1, h.shape[-1]), lp["moe"], cfg.moe,
+               experts=experts)
+    return x + reduce(y.reshape(h.shape))
 
 
 # --------------------------------------------------------------------------

@@ -40,7 +40,11 @@ of ``{"k", "v", "kv_pos"}`` with per-layer widths when unrolled (gemma3's
 ``local_global_period``, or ``scan_layers=False``); for the hybrid,
 ``{"mamba": (L, ...), "attn": {"k", "v": (G, B, W, Hkv, Dh), "kv_pos": (G,
 B, W)}}`` with one attention cache per shared-block application.
-``constrain`` is the identity: the port has no mesh (ROADMAP A13).
+``axes()`` and ``cache_axes()`` give the JAX package's logical sharding
+axes of the parameter and cache trees (``distributed.sharding`` maps them
+to a mesh); the model itself carries no sharding constraint, and runs on
+one device: the sharded data plane is the paged executor's ``mesh=``
+path.
 Dtypes are the JAX package's (``ModelOpts``): parameters in
 ``param_dtype``, activations in ``compute_dtype``, KV caches in
 ``cache_dtype``, each fp32 or bf16, and the casts where JAX casts them
@@ -52,8 +56,7 @@ and cache (``src/repro/launch/steps.py``); Mamba2 states stay fp32.
 ``DecoderLM(cfg, opts, device=None)`` runs on the card unless the caller
 asks for the CPU (``_device.resolve_device``); ``build_model`` returns the
 encoder-decoder's ``encdec.EncDecLM`` for seamless-m4t-large-v2. Not
-ported: ``axes``/``cache_axes`` and the costing options (ROADMAP A13,
-A14).
+ported: the costing options (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import mamba2 as M
-from .moe import MOE_IMPLS
+from .moe import MOE_AXES, MOE_IMPLS
 from .module import rmsnorm
 from .weights import init_params
 
@@ -150,6 +153,58 @@ class DecoderLM:
         ``init_params`` from ``generator`` (on this model's device)."""
         return init_params(self.cfg, generator, self.device,
                            self.opts.param_dtype)
+
+    def axes(self) -> dict:
+        """Logical sharding axes, same structure as params (stacked leading
+        'layers' dim is unsharded)."""
+        cfg = self.cfg
+        lead = (None,)  # stacked layer dim
+        ax: dict = {
+            "embed": ("vocab", "embed"),
+            "ln_f": ("embed",),
+            "head": ("embed", "vocab"),
+        }
+        if cfg.family in ("ssm", "hybrid"):
+            mam = {k: lead + v for k, v in M.MAMBA_AXES.items()}
+            ax["layers"] = {"mamba": mam, "ln": lead + ("embed",)}
+            if cfg.family == "hybrid":
+                ax["shared"] = {
+                    "attn": dict(L.ATTN_AXES), "ln1": ("embed",),
+                    "mlp": dict(L.MLP_AXES), "ln2": ("embed",),
+                }
+        else:
+            lp = {"attn": {k: lead + v for k, v in L.ATTN_AXES.items()},
+                  "ln1": lead + ("embed",), "ln2": lead + ("embed",)}
+            if cfg.moe is not None:
+                lp["moe"] = {k: lead + v for k, v in MOE_AXES.items()}
+            else:
+                lp["mlp"] = {k: lead + v for k, v in L.MLP_AXES.items()}
+            ax["layers"] = lp
+        return ax
+
+    def cache_axes(self) -> dict:
+        """Logical axes tree matching init_cache's structure."""
+        cfg = self.cfg
+        kv = {"k": (None, "cache_batch", "cache_seq", "kv_heads", None),
+              "v": (None, "cache_batch", "cache_seq", "kv_heads", None),
+              "kv_pos": ("cache_batch", "cache_seq")}
+        ax: dict = {"pos": ("cache_batch",)}
+        mam = {"ssm": (None, "cache_batch", "state", None, None),
+               "conv": (None, "cache_batch", None, "inner")}
+        if cfg.family == "ssm":
+            ax["mamba"] = mam
+        elif cfg.family == "hybrid":
+            ax["mamba"] = mam
+            # shared-attn caches carry a leading group dim on kv_pos too
+            ax["attn"] = {**kv, "kv_pos": (None, "cache_batch", "cache_seq")}
+        elif self.unroll:
+            per = {"k": ("cache_batch", "cache_seq", "kv_heads", None),
+                   "v": ("cache_batch", "cache_seq", "kv_heads", None),
+                   "kv_pos": ("cache_batch", "cache_seq")}
+            ax["kv"] = [per for _ in range(cfg.n_layers)]
+        else:
+            ax["kv"] = kv
+        return ax
 
     # ------------------------------------------------------------------
     # pieces

@@ -69,6 +69,18 @@ def init_mamba_params(cfg: ArchConfig, generator: torch.Generator, device,
     return {k: v.to(dtype) for k, v in tree.items()}
 
 
+MAMBA_AXES = {
+    "in_proj": ("embed", "inner"),
+    "conv_w": (None, "inner"),
+    "conv_b": ("inner",),
+    "A_log": (None,),
+    "D": (None,),
+    "dt_bias": (None,),
+    "norm_w": ("inner",),
+    "out_proj": ("inner", "embed"),
+}
+
+
 def ssd_chunked(xdt, a_dt, b, c, chunk: int, init_state=None):
     """Chunked SSD scan.
 

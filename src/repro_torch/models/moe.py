@@ -24,9 +24,19 @@ einsum promotes its operands to (``_promoted``): bf16 activations with
 fp32 parameters (the launch training opts) in fp32, with bf16 parameters
 (the serving opts) in bf16, where ``torch.matmul`` would refuse the mix.
 
+Expert parallelism (``experts=(lo, hi)``, the paged executor under a
+mesh): ``params`` then hold experts lo..hi-1 of the global router's E, and
+each path returns this rank's part of the output, which an all-reduce over
+the ranks completes. ``exact`` weights its experts' per-token outputs by the
+global router's gates; ``capacity`` computes the capacity and the dispatch
+from the replicated router output and runs B4 over its own experts' rows
+of the dispatch buffer only. With the experts replicated and ``expert_ff``
+sharded, ``params`` hold a slice of each expert's hidden dim and the same
+code returns a partial sum (``experts=None``).
+
 What differs from the JAX package, none of it changing a value: no
-``constrain`` sharding hints (the port is single-device until ROADMAP A13)
-and no ``jax.checkpoint`` around each router chunk (``DecoderLM``
+``constrain`` sharding hints (under a mesh the executor runs the
+collectives itself, ``distributed.tp``) and no ``jax.checkpoint`` around each router chunk (``DecoderLM``
 checkpoints whole layers under ``remat``); ties in the router's top-k go to
 the lower expert id, by a stable descending sort, as ``lax.top_k`` gives
 them; each expert's first sorted slot comes from a search of the sorted ids
@@ -51,6 +61,14 @@ from .module import silu
 MOE_IMPLS = ("exact", "capacity")
 
 
+MOE_AXES = {
+    "router": (None, None),
+    "w_gate": ("expert", "embed", "expert_ff"),
+    "w_up": ("expert", "embed", "expert_ff"),
+    "w_down": ("expert", "expert_ff", "embed"),
+}
+
+
 def _promoted(a: torch.Tensor, b: torch.Tensor):
     """``a`` and ``b`` cast to the dtype ``jnp`` promotes a product of the
     two to (a no-op for one that has it already)."""
@@ -66,9 +84,10 @@ def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return torch.softmax(topv, dim=-1), tope
 
 
-def moe_dense_exact(x: torch.Tensor, params: dict,
-                    cfg: MoEConfig) -> torch.Tensor:
-    """x: (T, d) → (T, d). Computes all experts; exact oracle."""
+def moe_dense_exact(x: torch.Tensor, params: dict, cfg: MoEConfig,
+                    experts: Optional[tuple] = None) -> torch.Tensor:
+    """x: (T, d) → (T, d). Computes all experts (those of ``experts``, when
+    given); exact oracle."""
     t, _ = x.shape
     gates, tope = _route(x, params["router"], cfg.top_k)
     h = torch.matmul(*_promoted(x, params["w_gate"]))         # (E, T, f)
@@ -77,6 +96,8 @@ def moe_dense_exact(x: torch.Tensor, params: dict,
     # a token's top-k experts are distinct: scatter equals JAX's .at[].add
     dense_gates = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
                               device=x.device).scatter_(1, tope, gates)
+    if experts is not None:
+        dense_gates = dense_gates[:, experts[0]:experts[1]]
     return torch.einsum("te,etd->td", dense_gates,
                         y.float()).to(x.dtype)
 
@@ -131,21 +152,28 @@ def dispatch(x: torch.Tensor, valid: torch.Tensor, router: torch.Tensor,
 
 
 def _moe_chunk(x: torch.Tensor, valid: torch.Tensor, params: dict,
-               cfg: MoEConfig, capacity: int) -> torch.Tensor:
-    """One chunk of the capacity path. x: (T, d); valid: (T,) bool."""
+               cfg: MoEConfig, capacity: int,
+               experts: Optional[tuple] = None) -> torch.Tensor:
+    """One chunk of the capacity path. x: (T, d); valid: (T,) bool. With
+    ``experts=(lo, hi)`` only those experts' rows of the dispatch buffer
+    run, and slots routed elsewhere add 0."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    lo, hi = experts or (0, e)
+    r0, rows = lo * capacity, (hi - lo) * capacity
     dp = dispatch(x, valid, params["router"], cfg, capacity)
     x_pad = torch.cat([x, x.new_zeros(1, d)])
-    xg = x_pad[dp.slot_token].reshape(e, capacity, d)
+    xg = x_pad[dp.slot_token[r0:r0 + rows]].reshape(hi - lo, capacity, d)
     h = moe_gmm_op(*_promoted(xg, params["w_gate"]))
     u = moe_gmm_op(*_promoted(xg, params["w_up"]))
     y = moe_gmm_op(*_promoted(silu(h) * u, params["w_down"]))
-    y_flat = y.reshape(e * capacity, d).float()
+    y_flat = y.reshape(rows, d).float()
 
-    # combine: out[st] += gate * y[slot], a dropped slot adding 0
-    contrib = torch.where(dp.keep, dp.sg, 0.0)[:, None] * y_flat[
-        dp.slot.clamp(max=e * capacity - 1)]
+    # combine: out[st] += gate * y[slot], a dropped (or another rank's)
+    # slot adding 0
+    mine = dp.keep & (dp.slot >= r0) & (dp.slot < r0 + rows)
+    contrib = torch.where(mine, dp.sg, 0.0)[:, None] * y_flat[
+        (dp.slot - r0).clamp(0, rows - 1)]
     # each token's k sorted positions, ascending: its experts in id order
     where = torch.empty_like(dp.order)
     where[dp.order] = torch.arange(t * k, device=x.device)
@@ -157,22 +185,25 @@ def _moe_chunk(x: torch.Tensor, valid: torch.Tensor, params: dict,
 
 
 def moe_capacity(x: torch.Tensor, params: dict, cfg: MoEConfig,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 valid: Optional[torch.Tensor] = None,
+                 experts: Optional[tuple] = None) -> torch.Tensor:
     """Capacity-dispatch MoE over a flat token buffer. x: (T, d) → (T, d).
     Chunks of ``router_chunk`` tokens each get the capacity of a full
-    chunk; the last is zero-padded and its pad tokens are invalid."""
+    chunk; the last is zero-padded and its pad tokens are invalid.
+    ``experts`` as in ``_moe_chunk``."""
     t, _ = x.shape
     if valid is None:
         valid = torch.ones(t, dtype=torch.bool, device=x.device)
     chunk, cap = cfg.router_chunk, chunk_capacity(t, cfg)
     if t <= chunk:
-        return _moe_chunk(x, valid, params, cfg, cap)
+        return _moe_chunk(x, valid, params, cfg, cap, experts)
     n_chunks = -(-t // chunk)
     pad = n_chunks * chunk - t
     xp = F.pad(x, (0, 0, 0, pad))
     vp = F.pad(valid, (0, pad))
     out = [_moe_chunk(xp[i * chunk:(i + 1) * chunk],
-                      vp[i * chunk:(i + 1) * chunk], params, cfg, cap)
+                      vp[i * chunk:(i + 1) * chunk], params, cfg, cap,
+                      experts)
            for i in range(n_chunks)]
     return torch.cat(out)[:t]
 

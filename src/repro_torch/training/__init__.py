@@ -1,8 +1,9 @@
 """Training of the port: the optimizers (AdamW, Adafactor), the train step
 (loss → grad → clip → update, with gradient accumulation) and flat-path
 ``.npz`` checkpoints that the JAX package reads and writes too. Port of
-``src/repro/training``; ``opt_axes`` and ``grad_shardings`` wait for the
-mesh (ROADMAP A13)."""
+``src/repro/training``. ``optimizer.opt_axes`` gives the optimizer state's
+logical sharding axes; training runs on one device, and ``grad_shardings``
+waits for sharded training (ROADMAP A13b)."""
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .optimizer import (OptConfig, apply_updates, clip_by_global_norm,
                         global_norm, init_opt_state)

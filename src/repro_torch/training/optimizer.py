@@ -23,13 +23,17 @@ and of each moment on the card (h2o-danube-1.8b: 29 GB for params, grads
 and AdamW's two moments, where returning new trees would hold both copies
 of params and moments at once: 51 GB). A caller that needs the old values
 (two steps from one state) passes a copy, as for ``decode_step``'s cache.
-``opt_axes`` waits for the mesh (ROADMAP A13).
+``opt_axes`` gives the state's logical sharding axes, mirroring the
+params' (``distributed.sharding`` maps them to a mesh); training itself
+runs on one device (sharded training: ROADMAP A13b).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..distributed.sharding import map_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +97,23 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
         return {"step": step, "vr": tree_map(vrow, params),
                 "vc": tree_map(vcol, params)}
     raise ValueError(cfg.name)
+
+
+def opt_axes(params_axes, params_shapes, cfg: OptConfig):
+    """Sharding axes for the optimizer state, mirroring the params axes.
+    ``params_shapes`` has the params' structure, its leaves anything with
+    a ``shape`` (tensors)."""
+    if cfg.name == "adamw":
+        return {"step": (), "m": params_axes, "v": params_axes}
+
+    def vrow_ax(ax, p):
+        return tuple(ax[:-1]) if _factored(p.shape) else tuple(ax)
+
+    def vcol_ax(ax, p):
+        return tuple(ax[:-2]) + tuple(ax[-1:]) if _factored(p.shape) else (None,)
+    return {"step": (),
+            "vr": map_axes(vrow_ax, params_axes, params_shapes),
+            "vc": map_axes(vcol_ax, params_axes, params_shapes)}
 
 
 @torch.no_grad()

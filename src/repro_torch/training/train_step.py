@@ -7,8 +7,9 @@ respect to detached copies of every parameter leaf (a parameter that the
 loss does not reach, such as ``embed`` under an ``embeds`` input, gets
 zeros, as ``jax.grad`` gives). The update then runs in place
 (``optimizer.apply_updates``): the step consumes ``params`` and
-``opt_state`` and returns them updated. ``grad_shardings`` waits for the
-mesh (ROADMAP A13).
+``opt_state`` and returns them updated. ``grad_shardings`` waits for
+sharded training with ``distributed.sharding.training_rules`` (ROADMAP
+A13b).
 """
 from __future__ import annotations
 

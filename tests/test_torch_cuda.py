@@ -78,6 +78,11 @@ gives them) and is held against its plain version's fp32 math on the
 same (widened) inputs: at most one bf16 rounding of the output, |Δ| ≤
 2⁻⁸·|plain| + 1e-4·max|plain|, and a repeat bitwise equal; fp16 raises
 ``TypeError``.
+The sharded data plane: B1 (fp32) and B2 (int8) at h2o-danube-1.8b's
+heads on one rank at TP 2 and 4 and B4 at mixtral-8x7b's experts on one
+rank at TP 2 against their plain versions; and a 1 × 1 mesh on NCCL
+(``launch.mesh.spawn``, one process) gives every dispatch's logits bit for
+bit as ``mesh=None`` does, fp32 and int8.
 """
 import dataclasses
 
@@ -1662,3 +1667,106 @@ def test_mamba_chunk_scan_bf16_refusals(cuda):
     with pytest.raises(TypeError):                  # no fp32 y from bf16 xdt
         mamba_chunk_scan(*(t.to(BF16) for t in (x, a, b, c)), None,
                          torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the sharded data plane's per-rank shapes (chip_smoke 3i) and TP = 1 on NCCL
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b's attention on one rank: H 16 / Hkv 4 at TP 2, H 8 /
+# Hkv 2 at TP 4 (D 80, pages of 128), a mixed step and a decode batch
+SHARD_LAYOUTS = [
+    ([40, 1, 0, 1, 17], [90, 200, 0, 379, 0], 16, 4, 80, 128, 3, None),
+    ([1] * 8, [5, 60, 127, 128, 200, 255, 300, 380], 16, 4, 80, 128, 3,
+     None),
+    ([40, 1, 0, 1, 17], [90, 200, 0, 379, 0], 8, 2, 80, 128, 3, 100),
+    ([1] * 8, [5, 60, 127, 128, 200, 255, 300, 380], 8, 2, 80, 128, 3,
+     None),
+]
+
+
+@pytest.mark.parametrize("layout", SHARD_LAYOUTS,
+                         ids=["tp2_mixed", "tp2_decode", "tp4_mixed_swa",
+                              "tp4_decode"])
+def test_attention_kernels_at_per_shard_heads(cuda, layout):
+    """B1 in fp32 and B2 in int8 at a rank's heads, against their plain
+    versions at 1e-4, stream padding rows 0."""
+    *shape, window = layout
+    args = _inputs(*shape, cuda)
+    got = paged_attention_ragged(*args, window=window)
+    want = paged_attention_ragged_ref(*args, window=window)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+    assert torch.all(got[sum(layout[0]):] == 0)
+    qargs = _quant_inputs("int8", shape, cuda)
+    got = paged_attention_ragged_quant(*qargs, window=window)
+    want = paged_attention_ragged_quant_ref(*qargs, window=window)
+    assert float((got - want).abs().max()) <= ATOL
+    assert torch.all(got[sum(layout[0]):] == 0)
+
+
+@pytest.mark.parametrize("c", [8, 640])
+@pytest.mark.parametrize("kn", [(4096, 14336), (14336, 4096)],
+                         ids=["gate_up", "down"])
+def test_moe_gmm_at_per_rank_experts(cuda, c, kn):
+    """B4 at mixtral-8x7b's experts on one rank at TP 2 (E 4), decode and
+    prefill capacities, at 2e-4·√K, a repeat bitwise."""
+    k, n = kn
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, c, k), generator=g, device=cuda).mul_(0.3)
+    w = torch.randn((4, k, n), generator=g, device=cuda).mul_(0.3)
+    got = moe_gmm(x, w)
+    assert float((got - moe_gmm_ref(x, w)).abs().max()) < 2e-4 * k ** 0.5
+    assert torch.equal(moe_gmm(x, w), got)
+    del x, w, got
+    torch.cuda.empty_cache()
+
+
+def _tp1_rank(rank, world, kv_dtype):
+    """One NCCL rank: the reduced h2o-danube-1.8b served on the model
+    clock by a 1 × 1 mesh's executor and by ``mesh=None``'s on the same
+    weights; every dispatch's logits of both, and their tokens."""
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh(data=1, model=1)
+    cfg = get_reduced("h2o-danube-1.8b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         "cuda")
+    clock = LinearCostModel(a=1e-3, b=1e-4, c=0.0)
+    out = {}
+    for key, m in (("single", None), ("mesh", mesh)):
+        ex = PagedTransformerExecutor(cfg, params, num_pages=64,
+                                      page_size=16, max_pages_per_seq=8,
+                                      kv_dtype=kv_dtype, mesh=m,
+                                      device="cuda")
+        logs, step = [], ex._fused_step
+        ex._fused_step = lambda st, t, _s=step, _l=logs: (
+            lambda lg: (_l.append(lg.cpu()), lg)[1])(_s(st, t))
+        eng = Engine(make_scheduler("fairbatching", clock, calibrate=False),
+                     ModelTimedExecutor(ex, clock),
+                     EngineConfig(ttft_slo=30.0, tpot_slo=2.0))
+        rng = np.random.default_rng(2)
+        for i in range(5):
+            toks = [int(t) for t in rng.integers(0, cfg.vocab, 8 + 9 * i)]
+            eng.submit(Request(i, arrival=0.01 * i, prompt_len=len(toks),
+                               max_new_tokens=6, ttft_slo=30.0,
+                               tpot_slo=2.0, tokens=toks))
+        while eng.has_work:
+            eng.step()
+        out[key] = (logs, {r: list(q.generated_tokens)
+                           for r, q in eng.requests.items()})
+    (a, ta), (b, tb) = out["single"], out["mesh"]
+    return {"dispatches": len(b), "tokens_equal": ta == tb,
+            "bitwise": len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b))}
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_tp1_nccl_logits_bitwise_equal_single_device(cuda, kv_dtype):
+    """A 1 × 1 mesh on NCCL runs the sharded path (its all-reduces and
+    broadcasts over one rank) and gives every dispatch's logits bit for
+    bit as ``mesh=None`` does."""
+    from repro_torch.launch.mesh import spawn
+    rec, = spawn(_tp1_rank, 1, "nccl", kv_dtype, timeout=300)
+    assert rec["dispatches"] > 5
+    assert rec["tokens_equal"] and rec["bitwise"]

@@ -29,6 +29,7 @@ from repro_torch.cache import PrefixCache
 from repro_torch.configs import get_reduced as torch_get_reduced
 from repro_torch.engine import numerics as tnum
 from repro_torch.engine.spec_decode import TruncatedSelfDraft
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import params_from_numpy
 
 PAGE, NUM_PAGES, MAX_PAGES = 16, 64, 8
@@ -194,14 +195,20 @@ def test_decode_defers_when_out_of_blocks(setups):
 
 
 def test_unported_options_raise(setups):
-    """Mesh sharding is a later slice and raises; sequential mode,
+    """A mesh with a data axis above 1 is a later slice (ROADMAP A13b) and
+    raises, as does a mesh without process groups; sequential mode,
     multi-step decode, the draft hook, quantized KV and a prefix cache on
     the executor's own allocator work, a cache on another allocator is
     refused, and an unknown kv_dtype raises."""
     cfg, tcfg, _, tparams = setups["stablelm-3b"]
-    with pytest.raises(NotImplementedError):
-        teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
-                                      mesh=object())
+    with pytest.raises(NotImplementedError, match="A13b"):
+        teng.PagedTransformerExecutor(
+            tcfg, tparams, device="cpu",
+            mesh=Mesh.abstract((2, 1), ("data", "model")))
+    with pytest.raises(ValueError, match="process group"):
+        teng.PagedTransformerExecutor(
+            tcfg, tparams, device="cpu",
+            mesh=Mesh.abstract((1, 2), ("data", "model")))
     with pytest.raises(ValueError):
         teng.PagedTransformerExecutor(tcfg, tparams, device="cpu",
                                       mode="pipelined")

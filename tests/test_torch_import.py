@@ -45,8 +45,9 @@ def test_guard_covers_every_slice():
     """The scans walk the package, so each slice's modules are in them:
     the MoE slice's model, kernel wrapper and configs included, the
     prefix cache, replay, cluster, fault plane and disaggregation, the
-    decoder families' attention, ``DecoderLM`` and config copies, and the
-    training package and the encoder-decoder."""
+    decoder families' attention, ``DecoderLM`` and config copies, the
+    training package and the encoder-decoder, and the sharded data
+    plane's rule tables, TP layers and meshes."""
     mods = _submodules()
     for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.mixtral_8x7b",
@@ -67,7 +68,9 @@ def test_guard_covers_every_slice():
               "repro_torch.configs.seamless_m4t_large_v2",
               "repro_torch.training", "repro_torch.training.optimizer",
               "repro_torch.training.train_step",
-              "repro_torch.training.checkpoint"):
+              "repro_torch.training.checkpoint",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.tp", "repro_torch.launch.mesh"):
         assert m in mods, m
     assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
                                             "chip_smoke.py", "migration.py",
