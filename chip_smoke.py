@@ -368,13 +368,14 @@ nothing of the JAX package. Phases, each printing its own lines:
    (46.4 GB of bf16 weights, the memory 5d's 8 fp32 layers take), 4
    prompts of 2048 tokens then 32 greedy steps; (ii) mamba2-1.3b at full
    depth on 5e (i)'s workload (8 × 2048, then 64 steps).
-5l. timed TP serve — h2o-danube-1.8b at full depth and width, TP 2 (two
-   processes on this card, gloo), serve-16's traffic on the wall clock:
-   phase 5's gates and numbers, with the collectives' ms a step (device
-   synchronised either side of each all-reduce and broadcast on rank 0)
-   and the share of tokens equal to phase 5's (for information: through
-   the host on gloo, not TP over NVLink; line ``tp_serve``). Run in the
-   same spawn as 4n's TP 2 cases.
+5l. timed TP serve — h2o-danube-1.8b at full width with 6 of its 24
+   layers (cut for the script's time: gloo's host round trips were 85 %
+   of the full model's wall), TP 2 (two processes on this card, gloo),
+   serve-16's traffic on the wall clock: phase 5's gates and numbers,
+   with the collectives' ms a step (device synchronised either side of
+   each all-reduce and broadcast on rank 0; for information: through the
+   host on gloo, not TP over NVLink; line ``tp_serve``). Run in the same
+   spawn as 4n's TP 2 cases.
 6a-6c. training — ``make_train_step`` from the port's own weights (seed
    0) over one fixed batch (seed 11): 6a h2o-danube-1.8b at full width
    with 6 of its 24 layers, AdamW, 4 × 1024 tokens, 8 steps; 6b
@@ -412,10 +413,32 @@ nothing of the JAX package. Phases, each printing its own lines:
    AdamW, 5 steps); (ii) mamba2-1.3b at full depth on 6d's (4 × 2048; B5
    on bf16 b and c, forward and backward).
 
+7a. launch cells — ``launch.steps.build_cell`` on a 1 × 1 abstract mesh at
+   the JAX launch opts and full width, each cell's own weights from seed
+   0: (i) mamba2-1.3b ``train_4k`` (AdamW, remat, ce_chunk 2048) at B 4
+   × 4096 (of 256), (ii) mamba2-1.3b ``prefill_32k`` at B 1 (of 32),
+   (iii) mamba2-1.3b ``decode_32k`` at B 128, (iv) h2o-danube-1.8b
+   ``decode_32k`` at B 128 (its 4096-wide ring: 32.2 GB of bf16 K/V),
+   (v) mixtral-8x7b ``decode_32k`` with 16 of 32 layers at B 64 (of
+   128: 46.4 GB of bf16 weights and 17.2 GB of K/V); decode cells from a
+   full cache, as after a 32 767-token prefill. Each is dry-run first
+   (``launch.dryrun.measure`` on ``meta`` tensors, on the host), then
+   materialised on the card and stepped twice, under
+   ``launch.cost_analysis.analyze`` and then timed (CUDA events) with the
+   allocator's peak reset. Gates: argument and output bytes equal the
+   dry run's exactly, the card's counted FLOPs the abstract run's, the
+   peak (above what was allocated before) within ±10 % of the dry run's
+   ``per_device_hbm_bytes``, loss, gradient norm and logits finite, B4
+   and B5 launched as the passes imply in both steps (``cell_launches``).
+   Reports step ms, TFLOP/s (counted FLOPs over it) and their share of
+   989 TFLOP/s, beside the card (lines ``launch_cell``).
+
 Lines before the last: one ``{"kernels": [...]}`` JSON object (B1, B3,
 B2, B4, B5, B5's backward; launches summed over every serving and
 training phase on the card: 4, 4b, 4c, 4d, 4h, 4e, 4i, 4j, 4l, 4f, 4g,
-4n and 5l (every rank's), 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e (B1
+4n and 5l (every rank's), 5, 5b, 5c, 5f, 5g, 5d, 5e, 5h, 6b, 6d, 6e, 7a
+(7a's also alone as B4's, B5's and its backward's
+``launch_cell_launches``) (B1
 and B2 launch in 4f, 4g,
 5f and 5g; B3 and B4 in 4h, B4 and B5 in 4i, B4 in 4j and 6b, B5 and its
 backward in 4l, 6d and 6e; 4m, 5k and 6f are also summed alone as B4's,
@@ -463,7 +486,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 
 from compare_mamba2_scan import device_ms_by_kernel  # noqa: E402
 from repro_torch.cache import PrefixCache  # noqa: E402
-from repro_torch.configs import get  # noqa: E402
+from repro_torch.configs import SHAPES, get  # noqa: E402
 from repro_torch.core import (BatchItem, BatchPlan,  # noqa: E402
                               LinearCostModel, TaskKind, make_scheduler)
 from repro_torch.data.traces import make_scenario  # noqa: E402
@@ -479,6 +502,9 @@ from repro_torch.engine.numerics import (  # noqa: E402
 from repro_torch.engine.spec_decode import (  # noqa: E402
     SmallModelDraft, TruncatedSelfDraft)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bounds import (  # noqa: E402
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, gmm_backward_bound,
+    gmm_bound, scan_backward_bound, scan_bound)
 from repro_torch.kernels import mamba2_scan  # noqa: E402
 from repro_torch.kernels.mamba2_scan import (  # noqa: E402
     mamba_chunk_scan, mamba_chunk_scan_backward)
@@ -488,7 +514,11 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ragged, paged_attention_ragged_quant)
 from repro_torch.kernels.quant import (  # noqa: E402
     dequantize_kv, kv_quant_spec, quantize_kv, raw_pool)
-from repro_torch.launch.mesh import make_test_mesh, spawn  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cost_analysis import (  # noqa: E402
+    analyze, model_flops, param_counts, tree_bytes)
+from repro_torch.launch.mesh import Mesh, make_test_mesh, spawn  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     mamba_chunk_scan_backward_ref, mamba_chunk_scan_ref, moe_gmm_ref,
     paged_attention_ragged_quant_ref, paged_attention_ragged_ref,
@@ -505,9 +535,6 @@ from repro_torch.training import (OptConfig, apply_updates,  # noqa: E402
 from repro_torch.training.optimizer import leaves  # noqa: E402
 from repro_torch.training.train_step import value_and_grad  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
-FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor rate, published
 ATOL_KERNEL = 1e-4
 ATOL_LOGITS = 1e-3
 N_TIMED, N_WARMUP = 20, 3
@@ -1107,20 +1134,6 @@ def moe_steps() -> list:
     return steps
 
 
-def gmm_bound(e: int, c: int, k: int, n: int, elem: int = 4,
-              flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
-    """x and w read once, the output written once, ``elem`` bytes an
-    element; 2·E·C·K·N FLOPs at ``flops_per_s`` (the fp32 rate of the CUDA
-    cores by default)."""
-    nbytes = elem * (e * c * k + e * k * n + e * c * n)
-    flops = 2 * e * c * k * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / flops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
-
-
 def check_moe_kernel(name, e, c, k, n, w, timer, device, seed=0) -> dict:
     """B4 vs its plain version and ``torch.bmm`` on x ~ N(0, 0.3²) against
     ``w``; gate: max abs error < 2e-4·√K (tests/test_kernels.py)."""
@@ -1199,36 +1212,6 @@ def scan_shape(cfg, batch: int, prompt: int) -> tuple:
     chunk = min(s.chunk, prompt)
     return (batch, -(-prompt // chunk), chunk, s.n_heads(cfg.d_model),
             s.head_dim, s.d_state)
-
-
-def _rate(*elems) -> float:
-    """The peak rate of products whose operands have these element sizes:
-    bf16's tensor rate when all are 2 bytes, else fp32's."""
-    return BF16_FLOPS_PER_S if set(elems) == {2} else FP32_FLOPS_PER_S
-
-
-def scan_bound(b, nc, l, h, p, n, carried, x_elem: int = 4,
-               bc_elem: int = 4) -> dict:
-    """xdt, a_dt and y once at ``x_elem`` bytes an element, b and c at
-    ``bc_elem``, with the initial and the final state (fp32); FLOPs, as
-    many as these inputs need, each product at its operands' rate
-    (``_rate``): CBᵀ on the L(L+1)/2 pairs j ≤ i the causal mask keeps,
-    once per (batch, chunk) (B and C are shared by the heads); per head
-    and chunk the masked scores times X on the same pairs and the chunk's
-    own state (2·L·N·P), C · state (2·L·N·P) in the ``carried`` chunks a
-    nonzero state enters, and the state carried across (2·P·N)."""
-    nbytes = (x_elem * (2 * b * nc * l * h * p + b * nc * l * h)
-              + bc_elem * 2 * b * nc * l * n + 4 * 2 * b * h * p * n)
-    tri = l * (l + 1) // 2
-    cb = b * nc * 2 * n * tri
-    flops = (cb + b * nc * h * (2 * p * tri + 2 * l * n * p + 2 * p * n)
-             + b * carried * h * 2 * l * n * p)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = (cb / _rate(bc_elem) + (flops - cb) / _rate(x_elem, bc_elem)
-               ) * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
 
 
 def check_ssm_kernel(name, shape, nonzero, timer, device, seed=0) -> dict:
@@ -1312,27 +1295,6 @@ SSM_BACKWARD_STEPS = (("mamba2-1.3b", SSM_STEPS[0]),
                       ("mamba2-1.3b", SSM_STEPS[1]),
                       ("zamba2-2.7b", HYBRID_SSM_STEPS[0]))
 SCAN_NEEDS = (True, True, True, True, False)   # as in training: no dinit
-
-
-def scan_backward_bound(b, nc, l, h, p, n, bc_elem: int = 4) -> dict:
-    """xdt, a_dt (fp32), b, c (``bc_elem`` bytes an element) and y's
-    gradient (fp32) read and the four gradients written once, each in its
-    input's dtype (a zero start and no final-state gradient, as in
-    training); FLOPs at the fp32 rate (every product has an fp32 operand:
-    dY, X or Σ_h dG), as many as these inputs need: per head and chunk dY
-    Xᵀ and Mᵀ dY on the L(L+1)/2 causal pairs (2·P each) and four L·N·P
-    products (Cᵀ (exp(A) ⊙ dY), B D, the head's terms of dB and dC), per
-    batch and chunk (Σ_h dG) C and (Σ_h dG) B on the causal pairs (B and C
-    are shared by the heads)."""
-    nbytes = (4 * (3 * b * nc * l * h * p + 2 * b * nc * l * h)
-              + bc_elem * 4 * b * nc * l * n)
-    tri = l * (l + 1) // 2
-    flops = b * nc * h * (4 * p * tri + 8 * l * n * p) + b * nc * 4 * n * tri
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
 
 
 def check_ssm_backward(name, shape, timer, device, seed=0) -> dict:
@@ -3026,6 +2988,7 @@ def shard_moe_steps(by_capacity: dict, cfg) -> list:
 
 
 TP_PARITY_LAYERS = 2             # 4n's depth (of 24 and 32)
+TP_SERVE_LAYERS = 6              # 5l's depth (of 24): gloo's host trips
 TP_SERVE = dict(n=16, prompt_range=(256, 3072), new_tokens=32, gap=0.05,
                 seed=3, slo=(10.0, 0.25))      # serve-16's traffic (5l)
 TP_PARITY_REQUESTS = dict(n=6, prompt_range=(8, 64), new_tokens=8, gap=0.01,
@@ -3155,7 +3118,9 @@ def tp_cases(device, h2o, mix) -> dict:
         (2, "gloo"): [case(small, 2), case(small, 2, "int8"),
                       case(small, 2, mode="sequential"),
                       case(mix2, 2), case(mix2, 2, impl="capacity"),
-                      case(h2o, 2, pages=SERVE_PAGES, model_clock=False,
+                      case(dataclasses.replace(h2o,
+                                               n_layers=TP_SERVE_LAYERS),
+                           2, pages=SERVE_PAGES, model_clock=False,
                            requests=TP_SERVE, seed=0, serve_record=True,
                            timed=True)],
         (4, "gloo"): [case(small, 4), case(small, 4, "int8")],
@@ -3189,7 +3154,7 @@ def _tp_references(device, cases: dict) -> dict:
     return refs
 
 
-def phase_tp(device, h2o, mix, serve16_tokens: Optional[dict]) -> dict:
+def phase_tp(device, h2o, mix) -> dict:
     """Phases 4n and 5l. Spawns the TP 2 and TP 4 ranks on gloo (and TP 1
     on NCCL on the card) and holds their runs to the single-device ones:
     tokens, decisions (plans, deferrals, VTC) byte-equal to TP 1, one
@@ -3253,9 +3218,6 @@ def phase_tp(device, h2o, mix, serve16_tokens: Optional[dict]) -> dict:
                            collective_share_of_wall=(
                                r0["all_reduce_s"] + r0["broadcast_s"])
                            / s["wall_s"])
-                if serve16_tokens is not None:
-                    rec["share_tokens_equal_serve16"] = _share_equal(
-                        r0["tokens"], serve16_tokens)
                 _emit("tp_serve", rec)
                 serve_rec = rec
             else:
@@ -3300,21 +3262,6 @@ def moe_backward_steps() -> list:
         steps += [(f"{tag}_gate_up", e, c, d, f),
                   (f"{tag}_down", e, c, f, d)]
     return steps
-
-
-def gmm_backward_bound(e: int, c: int, k: int, n: int, elem: int = 4,
-                       flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
-    """dx = dy · wᵀ and dw = xᵀ · dy: each reads its two operands once and
-    writes its output once, ``elem`` bytes an element, and does the
-    forward's 2·E·C·K·N FLOPs at ``flops_per_s`` (the fp32 rate of the
-    CUDA cores by default)."""
-    nbytes = elem * 2 * (e * c * k + e * k * n + e * c * n)
-    flops = 4 * e * c * k * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / flops_per_s * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops}
 
 
 def check_moe_backward(name, e, c, k, n, w, timer, device, seed=0) -> dict:
@@ -3730,35 +3677,6 @@ def train_batch(run: TrainRun, device) -> dict:
     g = torch.Generator(device=device).manual_seed(11)
     return {"tokens": torch.randint(0, run.cfg.vocab, run.batch,
                                     generator=g, device=device)}
-
-
-def param_counts(cfg, params) -> dict:
-    """All parameters, those a token of the decoder (or the encoder)
-    multiplies by, per ``6·N·tokens``: a MoE layer's experts count
-    top_k / E of theirs; the embedding counts, as in 6·N·tokens."""
-    total = sum(t.numel() for t in leaves(params))
-    if cfg.is_encoder_decoder:
-        enc = sum(t.numel() for t in leaves(params["enc_layers"])) + \
-            params["enc_ln_f"].numel()
-        return {"params": total, "encoder_params": enc,
-                "decoder_params": total - enc}
-    active = total
-    if cfg.moe is not None:
-        experts = sum(params["layers"]["moe"][k].numel()
-                      for k in ("w_gate", "w_up", "w_down"))
-        active -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
-    return {"params": total, "active_params": int(active)}
-
-
-def model_flops(cfg, counts: dict, batch: tuple) -> float:
-    """6·N·tokens of one step: decoder-only, 6 × active params × B·S; the
-    encoder-decoder, 6 × (encoder params × frames + decoder params ×
-    decoder tokens). Remat's recomputed forward is not counted."""
-    if cfg.is_encoder_decoder:
-        b, frames, dec = batch
-        return 6.0 * b * (counts["encoder_params"] * frames
-                          + counts["decoder_params"] * dec)
-    return 6.0 * counts["active_params"] * math.prod(batch)
 
 
 def trace_ms(fn, groups: dict, label: str) -> tuple:
@@ -4383,6 +4301,148 @@ def bf16_fields(rec: dict, prefix: str = "bf16_") -> dict:
     return {prefix + k: rec.get(k) for k in keys}
 
 
+# ---------------------------------------------------------------------------
+# phase 7a: launch cells on the card, held to their dry run
+# ---------------------------------------------------------------------------
+
+# (tag, arch, shape, batch cut, depth cut): full width, the launch opts;
+# the batch and mixtral's depth cut as far as the card (its memory, by
+# the dry run) and this script's time force (PERF.md §4)
+LAUNCH_CELLS = (("i", "mamba2-1.3b", "train_4k", 4, None),
+                ("ii", "mamba2-1.3b", "prefill_32k", 1, None),
+                ("iii", "mamba2-1.3b", "decode_32k", None, None),
+                ("iv", "h2o-danube-1.8b", "decode_32k", None, None),
+                ("v", "mixtral-8x7b", "decode_32k", 64, 16))
+PEAK_TOLERANCE = 0.10      # the card's peak against the dry run's
+
+
+def cell_launches(cell, cuda: bool) -> dict:
+    """Each kernel's calls in one step of ``cell``: a training step's by
+    ``train_launches``; in a prefill B5 once per Mamba2 block; B4 three
+    times per layer and router chunk of every forward under capacity; no
+    other kernel (on the CPU nothing launches)."""
+    cfg, opts, shape = cell.arch, cell.model.opts, cell.shape
+    tokens = shape.global_batch * (1 if cell.mode == "decode"
+                                   else shape.seq_len)
+    if cell.mode == "train":
+        return train_launches(cfg, opts, tokens, cuda)
+    want = {n: 0 for n in KERNELS}
+    if cuda and cfg.moe is not None and opts.moe_impl == "capacity":
+        want["moe_gmm"] = 3 * cfg.n_layers * router_chunks(tokens, cfg.moe)
+    if cuda and cfg.ssm is not None and cell.mode == "prefill":
+        want["mamba2_scan"] = cfg.n_layers
+    return want
+
+
+def _step_values(cell, out) -> dict:
+    """A step's loss and gradient norm (training) or its logits' largest
+    magnitude, and whether they are finite."""
+    if cell.mode == "train":
+        vals = {k: float(out[2][k]) for k in ("loss", "grad_norm")}
+    else:
+        vals = {"logits_absmax": float(out[0].float().abs().max())}
+    return {**vals, "finite": all(math.isfinite(v) for v in vals.values())}
+
+
+def phase_launch_cells(device, card: str, cells=LAUNCH_CELLS,
+                       reduced: bool = False) -> list:
+    """Phase 7a: each cell through ``build_cell`` on a 1 × 1 abstract mesh
+    at the launch opts, its batch and depth cut, dry-run on ``meta``
+    tensors (``dryrun.measure``), then its arguments drawn on ``device``
+    (``CellSpec.materialize``, seed 0; a decode cell's cache full, as
+    after a prefill of seq_len - 1 tokens) and its step run twice: under
+    ``analyze``, then timed by CUDA events with the allocator's peak
+    reset, the arguments resident. Gates: the arguments' and the outputs'
+    bytes equal the dry run's exactly, the card's FLOPs equal the
+    abstract run's exactly, the timed run's peak above what was
+    allocated before lies within ±10 % of the dry run's
+    ``per_device_hbm_bytes`` (the analysed run's peak is reported: the
+    dry run counts the step as it runs under a dispatch mode), the
+    loss, gradient norm or logits are finite, and each run launches B4
+    and B5 as ``cell_launches`` says. Reports step ms, counted TFLOP/s
+    and their share of 989 TFLOP/s (bf16), beside the card."""
+    cuda = torch.device(device).type == "cuda"
+    mesh = Mesh.abstract((1, 1), ("data", "model"))
+    recs = []
+    for tag, arch, shape, batch, layers in cells:
+        if cuda:
+            _release_memory()
+        cell = build_cell(arch, shape, mesh, reduced=reduced, batch=batch,
+                          layers=layers)
+        dry = dryrun.measure(cell)
+        base = torch.cuda.memory_allocated() if cuda else 0
+        args = cell.materialize(device, torch.Generator(
+            device=device).manual_seed(0))
+        arg_bytes = tree_bytes(args)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        res, launches = _counted(cuda, lambda: analyze(cell.fn, *args))
+        values = _step_values(cell, res.pop("output"))
+        want = cell_launches(cell, cuda)
+        full = get(arch)
+        rec = {"cell": tag, "arch": arch, "shape": shape, "mode": cell.mode,
+               "batch": cell.shape.global_batch,
+               "seq_len": cell.shape.seq_len, "layers": cell.arch.n_layers,
+               "reduced": {k: [a, b] for k, a, b in (
+                   ("global_batch", SHAPES[shape].global_batch,
+                    cell.shape.global_batch),
+                   ("n_layers", full.n_layers, cell.arch.n_layers))
+                   if a != b},
+               "dry": {**dry["memory"], "flops": dry["flops"],
+                       "bytes": dry["bytes"],
+                       "analysis_s": dry["analysis_s"]},
+               "argument_bytes": arg_bytes,
+               "output_bytes": res["output_bytes"], "flops": res["flops"],
+               "bytes": res["bytes"], **values,
+               "launches": launches, "launches_expected": want}
+        del res
+        if cuda:
+            torch.cuda.synchronize()
+            # the allocator's peak while the step ran under the analysis
+            # (a Python dispatch mode), which the dry run counts
+            rec["analysed_run_peak_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            out, again = _counted(cuda, lambda: (start.record(),
+                                                 cell.fn(*args),
+                                                 end.record())[1])
+            torch.cuda.synchronize()
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            rec["allocated_before"] = base
+            rec["peak_over_dry"] = (rec["peak_bytes"]
+                                    / dry["per_device_hbm_bytes"])
+            rec["step_ms"] = start.elapsed_time(end)
+            rec["tflops"] = rec["flops"] / rec["step_ms"] / 1e9
+            rec["share_of_bf16_peak"] = (rec["tflops"] * 1e12
+                                         / BF16_FLOPS_PER_S)
+            rec["launches_timed_run"] = again
+            rec["timed_run"] = _step_values(cell, out)
+            del out
+        if cell.mode == "train":
+            rec["model_flops_6nd"] = model_flops(
+                cell.arch, param_counts(cell.arch, args[0]),
+                (cell.shape.global_batch, cell.shape.seq_len))
+        rec["card"] = card
+        _emit("launch_cell", rec)
+        ok = (arg_bytes == dry["memory"]["argument_bytes"]
+              and rec["output_bytes"] == dry["memory"]["output_bytes"]
+              and rec["flops"] == dry["flops"] and rec["finite"]
+              and launches == want
+              and (not cuda or (abs(rec["peak_over_dry"] - 1)
+                                <= PEAK_TOLERANCE
+                                and rec["launches_timed_run"] == want
+                                and rec["timed_run"]["finite"])))
+        if not ok:
+            raise AssertionError(f"7a ({tag}) {arch} {shape}: a gate "
+                                 f"failed: {rec}")
+        recs.append(rec)
+        del args, cell
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4468,7 +4528,7 @@ def main() -> int:
     phase_migrate_serve(cfg, "cuda", params)
     del params
     _release_memory()
-    phase_tp("cuda", cfg, get("mixtral-8x7b"), serve16_tokens)
+    phase_tp("cuda", cfg, get("mixtral-8x7b"))
     _release_memory()
     mix = dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_SERVE_LAYERS)
     by_c = dict(phase_moe_serve(mix, "cuda")["b4_launches_by_capacity"])
@@ -4494,6 +4554,11 @@ def main() -> int:
     for run in bf16_train_runs():
         _release_memory()
         bf16_path(phase_train, run, "cuda")
+    # 7a: the launch cells; their launches also summed alone
+    before = dict(SERVING_LAUNCHES)
+    phase_launch_cells("cuda", card)
+    _release_memory()
+    cell_launches_sum = {n: SERVING_LAUNCHES[n] - before[n] for n in KERNELS}
 
     main_rec = recs[0]            # step (a), pages of 128: the serving shape
     dec_rec = recs[2]             # step (b), pages of 128
@@ -4590,6 +4655,7 @@ def main() -> int:
         "backward_library_ms": bwd_mrec["library_ms"],
         "backward_library_graph_ms": bwd_mrec["library_graph_ms"],
         "per_shard": per_shard(shard_mrecs),
+        "launch_cell_launches": cell_launches_sum["moe_gmm"],
         "bf16_launches": bf16_launches["moe_gmm"],
         **bf16_fields(b16_b4[0]), **bf16_fields(b16_b4[1], "bf16_prefill_"),
         **bf16_fields(b16_b4[2], "bf16_backward_"),
@@ -4612,6 +4678,7 @@ def main() -> int:
         "hybrid_graph_ms": hyb_srec["graph_ms"],
         "hybrid_bound_ms": hyb_srec["bound_ms"],
         "hybrid_bound_by": hyb_srec["bound_by"],
+        "launch_cell_launches": cell_launches_sum["mamba2_scan"],
         "bf16_launches": bf16_launches["mamba2_scan"],
         "bf16_dtypes": b16_b5[0]["dtypes"],
         **bf16_fields(b16_b5[0]), **bf16_fields(b16_b5[1], "bf16_hybrid_"),
@@ -4636,6 +4703,7 @@ def main() -> int:
         "hybrid_ms": hyb_grec["ms"], "hybrid_plain_ms": hyb_grec["plain_ms"],
         "hybrid_graph_ms": hyb_grec["graph_ms"],
         "hybrid_bound_ms": hyb_grec["bound_ms"],
+        "launch_cell_launches": cell_launches_sum["mamba2_scan_backward"],
         "bf16_launches": bf16_launches["mamba2_scan_backward"],
         "bf16_dtypes": b16["mamba2_scan_backward"][0]["dtypes"],
         **bf16_fields(b16["mamba2_scan_backward"][0])}]
@@ -4644,6 +4712,9 @@ def main() -> int:
     if not all(k["bf16_launches"] > 0 for k in kernels
                if "bf16_launches" in k):
         raise AssertionError("a kernel of the bf16 paths never launched")
+    if not all(k["launch_cell_launches"] > 0 for k in kernels
+               if "launch_cell_launches" in k):
+        raise AssertionError("a kernel of the launch cells never launched")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

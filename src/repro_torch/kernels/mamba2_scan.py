@@ -24,7 +24,12 @@ exactly in the kernel and y rounded once. Any other combination raises
 
 Tensors on the CPU take the plain version (``ref.mamba_chunk_scan_ref``);
 tensors on a CUDA device launch the kernel or raise — there is no
-fallback. ``mamba_chunk_scan.launches`` counts the kernel's calls (one per
+fallback. Tensors on the ``meta`` device take the abstract route of a dry
+run (``launch.dryrun``): the checks, the plan and the allocation of the
+outputs and the scratch, as on the card, and no launch. On every route
+the call is reported to an active cost analysis (``bounds.counted``, by
+``bounds.scan_bound``; its backward by ``bounds.scan_backward_bound``).
+``mamba_chunk_scan.launches`` counts the kernel's calls (one per
 call, whose four launches run on the current stream), and nothing else.
 
 ``mamba_chunk_scan_backward`` is B5's backward, the VJP of the model's
@@ -47,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, bounds, ref
 from .moe_gmm import H100_SMS
 
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -230,52 +235,75 @@ def mamba_chunk_scan(xdt: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     No autograd graph: the model differentiates it through
     ``MambaChunkScan``."""
     if xdt.device.type == "cpu":
-        return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state, y_dtype)
+        return _plain(xdt, a_dt, b, c, init_state, y_dtype)
     y, state, _ = _launch(xdt, a_dt, b, c, init_state, y_dtype)
     return y, state
 
 
-def _launch(xdt, a_dt, b, c, init_state, y_dtype=None):
-    """B5 on a CUDA device: (y, final state, the scratch by name — states
-    (B, NC, H, N, P) now the carried ones, acum, decay, ct, gt — that the
-    backward reads)."""
-    if xdt.device.type != "cuda":
-        raise ValueError(f"no mamba_chunk_scan for {xdt.device}")
-    _check(xdt, a_dt, b, c, init_state)
-    y_dtype = xdt.dtype if y_dtype is None else y_dtype
-    symbol = _FORWARD.get((xdt.dtype, b.dtype, y_dtype))
-    if symbol is None:
-        raise TypeError(f"no B5 for {xdt.dtype} xdt with y in {y_dtype}: "
-                        f"y is float32 from float32 xdt, or bfloat16 from "
-                        f"bfloat16 inputs")
+def _bound(xdt, b, init_state) -> dict:
+    """``bounds.scan_bound`` of one call: C · state in every chunk after
+    the first, and in the first where an initial state is passed (the
+    kernel cannot know that it is zero)."""
     bsz, nc, l, h, p = xdt.shape
-    n = b.shape[-1]
-    dev = xdt.device
-    plan = scan_plan(bsz, nc, l, h, p, n)
-    y = torch.empty_like(xdt, dtype=y_dtype)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
-    # one scratch buffer, cut in the launcher's order: states (each chunk's
-    # own state, then the state carried into it), acum, Cᵀ, Gᵀ, decay
-    # last (every other size is a multiple of 4 floats: 16-byte aligned)
-    order = ("states", "acum", "ct", "gt", "decay")
-    sizes = [torch.Size(plan.scratch[k]).numel() for k in order]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    scratch = {k: t.view(plan.scratch[k])
-               for k, t in zip(order, flat.split(sizes))}
-    fn = _function(symbol)
-    s0 = None if init_state is None else init_state.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(xdt.data_ptr(), a_dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-                s0, y.data_ptr(), state.data_ptr(),
-                *(scratch[k].data_ptr() for k in ("states", "decay", "acum",
-                                                  "ct", "gt")),
-                bsz, nc, l, h, p, n, plan.state.heads, plan.scan.heads,
-                plan.prep.smem, plan.state.smem, plan.scan.smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"mamba_chunk_scan launch failed: cudaError {rc}")
-    mamba_chunk_scan.launches += 1
-    return y, state, scratch
+    carried = nc - 1 + (init_state is not None)
+    return bounds.scan_bound(bsz, nc, l, h, p, b.shape[-1], carried,
+                             xdt.element_size(), b.element_size())
+
+
+def _plain(xdt, a_dt, b, c, init_state, y_dtype):
+    """The plain version on the CPU, counted as one B5 call."""
+    with bounds.counted("mamba2_scan", lambda: _bound(xdt, b, init_state)):
+        return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state, y_dtype)
+
+
+def _launch(xdt, a_dt, b, c, init_state, y_dtype=None):
+    """B5 on a CUDA device, or its abstract route on ``meta`` tensors
+    (everything but the launch): (y, final state, the scratch by name —
+    states (B, NC, H, N, P) now the carried ones, acum, decay, ct, gt —
+    that the backward reads)."""
+    if xdt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no mamba_chunk_scan for {xdt.device}")
+    with bounds.counted("mamba2_scan", lambda: _bound(xdt, b, init_state)):
+        _check(xdt, a_dt, b, c, init_state)
+        y_dtype = xdt.dtype if y_dtype is None else y_dtype
+        symbol = _FORWARD.get((xdt.dtype, b.dtype, y_dtype))
+        if symbol is None:
+            raise TypeError(f"no B5 for {xdt.dtype} xdt with y in "
+                            f"{y_dtype}: y is float32 from float32 xdt, or "
+                            f"bfloat16 from bfloat16 inputs")
+        bsz, nc, l, h, p = xdt.shape
+        n = b.shape[-1]
+        dev = xdt.device
+        plan = scan_plan(bsz, nc, l, h, p, n)
+        y = torch.empty_like(xdt, dtype=y_dtype)
+        state = torch.empty((bsz, h, p, n), dtype=torch.float32,
+                            device=dev)
+        # one scratch buffer, cut in the launcher's order: states (each
+        # chunk's own state, then the state carried into it), acum, Cᵀ,
+        # Gᵀ, decay last (every other size is a multiple of 4 floats:
+        # 16-byte aligned)
+        order = ("states", "acum", "ct", "gt", "decay")
+        sizes = [torch.Size(plan.scratch[k]).numel() for k in order]
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        scratch = {k: t.view(plan.scratch[k])
+                   for k, t in zip(order, flat.split(sizes))}
+        if dev.type == "meta":
+            return y, state, scratch
+        fn = _function(symbol)
+        s0 = None if init_state is None else init_state.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(xdt.data_ptr(), a_dt.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), s0, y.data_ptr(), state.data_ptr(),
+                    *(scratch[k].data_ptr()
+                      for k in ("states", "decay", "acum", "ct", "gt")),
+                    bsz, nc, l, h, p, n, plan.state.heads, plan.scan.heads,
+                    plan.prep.smem, plan.state.smem, plan.scan.smem, stream)
+        if rc != 0:
+            raise RuntimeError(f"mamba_chunk_scan launch failed: "
+                               f"cudaError {rc}")
+        mamba_chunk_scan.launches += 1
+        return y, state, scratch
 
 
 mamba_chunk_scan.launches = 0
@@ -292,11 +320,22 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
     the CPU, where the plain version runs."""
     if dy is None:
         dy = torch.zeros(xdt.shape, dtype=torch.float32, device=xdt.device)
-    if xdt.device.type == "cpu":
-        grads = ref.mamba_chunk_scan_backward_ref(xdt, a_dt, b, c,
-                                                  init_state, dy, dfinal)
-        return tuple(g if need else None for g, need in zip(grads, needs))
-    if xdt.device.type != "cuda":
+    with bounds.counted("mamba2_scan_backward",
+                        lambda: bounds.scan_backward_bound(
+                            *xdt.shape, b.shape[-1], b.element_size())):
+        if xdt.device.type == "cpu":
+            grads = ref.mamba_chunk_scan_backward_ref(xdt, a_dt, b, c,
+                                                      init_state, dy, dfinal)
+            return tuple(g if need else None
+                         for g, need in zip(grads, needs))
+        return _backward(xdt, a_dt, b, c, init_state, dy, dfinal, saved,
+                         needs)
+
+
+def _backward(xdt, a_dt, b, c, init_state, dy, dfinal, saved, needs):
+    """B5's backward on a CUDA device, or its abstract route on ``meta``
+    tensors (everything but the launch)."""
+    if xdt.device.type not in ("cuda", "meta"):
         raise ValueError(f"no mamba_chunk_scan_backward for {xdt.device}")
     _check(xdt, a_dt, b, c, init_state)
     symbol = _BACKWARD.get((xdt.dtype, b.dtype))
@@ -333,6 +372,9 @@ def mamba_chunk_scan_backward(xdt, a_dt, b, c, init_state, dy, dfinal,
     sizes = [torch.Size(v).numel() for v in shapes.values()]
     work = dict(zip(shapes, torch.empty(sum(sizes), dtype=torch.float32,
                                         device=dev).split(sizes)))
+    if dev.type == "meta":
+        return tuple(g if need else None
+                     for g, need in zip((dx, da, db, dc, dinit), needs))
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = _function(symbol)
     with torch.cuda.device(dev):
@@ -369,8 +411,7 @@ class MambaChunkScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if xdt.device.type == "cpu":
             ctx.save_for_backward(xdt, a_dt, b, c, init_state)
-            return ref.mamba_chunk_scan_ref(xdt, a_dt, b, c, init_state,
-                                            y_dtype)
+            return _plain(xdt, a_dt, b, c, init_state, y_dtype)
         if any(ctx.needs_input_grad[:5]) and (
                 (xdt.dtype, b.dtype) not in _BACKWARD
                 or (y_dtype or xdt.dtype) != torch.float32):

@@ -15,7 +15,11 @@ accumulation, as the Pallas kernel computes it; any other dtype, or a
 mix, raises ``TypeError`` (the models cast per ``jnp``'s promotion before
 the call, ``models/moe.py``). Tensors on the CPU take the plain version
 (``ref.moe_gmm_ref``); tensors on a CUDA device launch the kernel or
-raise — there is no fallback.
+raise — there is no fallback. Tensors on the ``meta`` device take the
+abstract route of a dry run (``launch.dryrun``): the plan, the checks and
+the allocation of the output and the scratch, as on the card, and no
+launch. On every route the call is reported to an active cost analysis
+(``bounds.counted``, by ``bounds.gmm_bound``).
 ``moe_gmm.launches`` counts the kernel's calls (one per call, whose one or
 two launches — the GEMM and, with split K, the sum of the parts — run on
 the current stream), and nothing else.
@@ -40,7 +44,7 @@ import functools
 
 import torch
 
-from . import _build, ref
+from . import _build, bounds, ref
 
 # argtypes of every extern "C" launcher, by symbol
 _SIG = {f"moe_gmm_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -170,12 +174,22 @@ def _check(x: torch.Tensor, w: torch.Tensor,
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, N) → (E, C, N) in x's dtype, one GEMM per
     expert, fp32 accumulation; x and w fp32 or bf16, alike."""
-    if x.device.type == "cpu":
-        return ref.moe_gmm_ref(x, w)
-    if x.device.type != "cuda":
+    with bounds.counted("moe_gmm", lambda: bounds.gmm_bound(
+            *x.shape, w.shape[-1], x.element_size())):
+        if x.device.type == "cpu":
+            return ref.moe_gmm_ref(x, w)
+        return _gmm(x, w)
+
+
+def _gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """B4 on a CUDA device, or its abstract route on ``meta`` tensors
+    (everything but the launch, at the H100's SM count)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no moe_gmm for {x.device}")
-    plan = _check(x, w, _sms(x.device.index if x.device.index is not None
-                             else torch.cuda.current_device()))
+    abstract = x.device.type == "meta"
+    plan = _check(x, w, H100_SMS if abstract else _sms(
+        x.device.index if x.device.index is not None
+        else torch.cuda.current_device()))
     e, c, k = x.shape
     n = w.shape[2]
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
@@ -186,6 +200,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     scratch = (None if plan.scratch is None else
                torch.empty(plan.scratch, dtype=torch.float32,
                            device=x.device))
+    if abstract:
+        return out
     fn = _launcher(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -27,7 +27,8 @@ pre-scaled query times the keys, so that the recomputed probabilities are
 the forward's to the last bit; the scale then enters dq and dk once, as
 JAX's ``ds · scale`` does. ``flash_attention_with_lse`` and
 ``flash_attention_banded`` stay forward only, as in JAX. The ``unroll``
-switch of the JAX costing parts has no counterpart (ROADMAP A14).
+switch of the JAX costing parts has no counterpart: the loop over KV
+blocks runs eagerly, so ``launch.cost_analysis`` sees every block.
 """
 from __future__ import annotations
 

@@ -54,9 +54,11 @@ cast ``jnp``'s promotion implies). The launch cells' serving opts are
 bf16 throughout, their training opts fp32 parameters with bf16 compute
 and cache (``src/repro/launch/steps.py``); Mamba2 states stay fp32.
 ``DecoderLM(cfg, opts, device=None)`` runs on the card unless the caller
-asks for the CPU (``_device.resolve_device``); ``build_model`` returns the
-encoder-decoder's ``encdec.EncDecLM`` for seamless-m4t-large-v2. Not
-ported: the costing options (ROADMAP A14).
+asks for the CPU (``_device.resolve_device``), or on ``meta`` tensors for
+a dry run (``launch.dryrun``); ``build_model`` returns the
+encoder-decoder's ``encdec.EncDecLM`` for seamless-m4t-large-v2. JAX's
+``flash_unroll`` has no counterpart: it unrolls XLA's scans for the HLO
+analysis, and the port's loops run eagerly (``launch.cost_analysis``).
 """
 from __future__ import annotations
 
@@ -84,8 +86,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 @dataclasses.dataclass
 class ModelOpts:
-    """The JAX ``ModelOpts`` but for the costing switches. Each dtype is
-    fp32 or bf16; another raises ``TypeError``."""
+    """The JAX ``ModelOpts`` but ``flash_unroll`` (an HLO-analysis switch
+    with no counterpart in eager loops). Each dtype is fp32 or bf16;
+    another raises ``TypeError``."""
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     cache_dtype: torch.dtype = torch.float32

@@ -29,6 +29,9 @@ ln2}`` (``cross`` an attention block), ``ln_f`` and ``head``.
   ``torch.Generator``, in fp32 and then cast to the dtype asked for.
   It is for runs without JAX, such as
   ``chip_smoke.py`` at full width, and never decides a parity result.
+  On the ``meta`` device, with no generator, it gives the tree's shapes
+  and dtypes and allocates nothing (``launch.steps``: a cell's abstract
+  parameters, JAX's ``jax.eval_shape(model.init, key)``).
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
                 dtype=torch.float32) -> dict:
     """Random parameters for ``cfg`` (dense, MoE, VLM, SSM, hybrid or the
     encoder-decoder) in ``dtype``, drawn in fp32 leaf by leaf; the
-    generator must live on ``device``."""
+    generator must live on ``device`` (None on ``meta``)."""
     uniform = cfg.family in ("dense", "moe", "vlm") and cfg.ssm is None
     mamba = (cfg.ssm is not None and (cfg.family == "ssm" or (
         cfg.family == "hybrid" and cfg.attn_period is not None)))

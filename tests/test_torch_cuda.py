@@ -1770,3 +1770,39 @@ def test_tp1_nccl_logits_bitwise_equal_single_device(cuda, kv_dtype):
     rec, = spawn(_tp1_rank, 1, "nccl", kv_dtype, timeout=300)
     assert rec["dispatches"] > 5
     assert rec["tokens_equal"] and rec["bitwise"]
+
+
+def test_launch_cell_decode_held_to_its_dry_run(cuda):
+    """chip_smoke 7a (iii): mamba2-1.3b ``decode_32k`` at its production
+    batch of 128, the cache full (states and convolution tails drawn, as
+    after 32 767 tokens): the materialised arguments' bytes and the
+    outputs' equal the dry run's, the card's FLOPs the abstract run's,
+    and its peak, the arguments resident, lies within ±10 % of the dry
+    run's ``per_device_hbm_bytes``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import analyze, tree_bytes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import build_cell
+    cell = build_cell("mamba2-1.3b", "decode_32k",
+                      Mesh.abstract((1, 1), ("data", "model")))
+    dry = dryrun.measure(cell)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = cell.materialize("cuda", torch.Generator(device="cuda")
+                            .manual_seed(0))
+    assert tree_bytes(args) == dry["memory"]["argument_bytes"]
+    assert (args[2]["pos"] == 32767).all()
+    res = analyze(cell.fn, *args)
+    assert res["flops"] == dry["flops"]
+    assert res["output_bytes"] == dry["memory"]["output_bytes"]
+    assert torch.isfinite(res["output"][0]).all()
+    del res
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = cell.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert abs(peak / dry["per_device_hbm_bytes"] - 1) <= 0.10, (
+        peak, dry["per_device_hbm_bytes"])
+    assert torch.isfinite(out[0]).all()

@@ -46,8 +46,9 @@ def test_guard_covers_every_slice():
     the MoE slice's model, kernel wrapper and configs included, the
     prefix cache, replay, cluster, fault plane and disaggregation, the
     decoder families' attention, ``DecoderLM`` and config copies, the
-    training package and the encoder-decoder, and the sharded data
-    plane's rule tables, TP layers and meshes."""
+    training package and the encoder-decoder, the sharded data
+    plane's rule tables, TP layers and meshes, and the launch half: cell
+    builders, cost analysis, dry run and the kernels' work counts."""
     mods = _submodules()
     for m in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.mixtral_8x7b",
@@ -70,12 +71,16 @@ def test_guard_covers_every_slice():
               "repro_torch.training.train_step",
               "repro_torch.training.checkpoint",
               "repro_torch.distributed.sharding",
-              "repro_torch.distributed.tp", "repro_torch.launch.mesh"):
+              "repro_torch.distributed.tp", "repro_torch.launch.mesh",
+              "repro_torch.launch.steps", "repro_torch.launch.cost_analysis",
+              "repro_torch.launch.dryrun", "repro_torch.kernels.bounds"):
         assert m in mods, m
     assert {p.name for p in PORT_FILES} >= {"moe.py", "moe_gmm.py",
                                             "chip_smoke.py", "migration.py",
                                             "encdec.py", "train_step.py",
-                                            "optimizer.py", "checkpoint.py"}
+                                            "optimizer.py", "checkpoint.py",
+                                            "steps.py", "cost_analysis.py",
+                                            "dryrun.py", "bounds.py"}
 
 
 def test_cluster_and_disagg_import_and_replay_with_jax_absent():

@@ -120,8 +120,14 @@ def test_moe_gmm_check_takes_the_valid_baseline_and_rejects_layouts():
         tmg._check(x.transpose(1, 2).contiguous().transpose(1, 2), w)
     with pytest.raises(ValueError, match="on"):
         tmg._check(x, w.to("meta"))
-    with pytest.raises(ValueError):
-        tmg.moe_gmm(x.to("meta"), w.to("meta"))   # neither CPU nor CUDA
+    # meta tensors take the abstract route of a dry run: the output
+    # allocated, nothing launched; the kernel route refuses the CPU
+    before = tmg.moe_gmm.launches
+    out = tmg.moe_gmm(x.to("meta"), w.to("meta"))
+    assert out.device.type == "meta" and out.shape == (2, 4, 12)
+    assert tmg.moe_gmm.launches == before
+    with pytest.raises(ValueError, match="no moe_gmm for cpu"):
+        tmg._gmm(x, w)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
