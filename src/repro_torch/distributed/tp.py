@@ -17,9 +17,10 @@ heads, FFN columns or experts, and completes each partial result with one
 * the vocab-sharded logits, each rank's columns written into a zero-filled
   full-vocab buffer, then summed.
 
-That is ``2·L + 2`` all-reduces a dispatch where the rule tables shard
+That is ``2·L + 2`` all-reduces a pass where the rule tables shard
 every one of those dimensions (``all_reduces`` counts them,
-``reduces_per_dispatch`` says how many to expect). A dimension they leave
+``reduces_per_dispatch`` says how many a dispatch should run: one pass,
+a committed horizon's or a speculative dispatch's). A dimension they leave
 replicated (a divisibility guard) is computed whole on every rank and
 needs no collective. Where the KV heads are replicated and the query
 heads sharded (``n_kv_heads % TP != 0``), each rank holds every KV head
@@ -38,6 +39,7 @@ identity, so that one layer body serves both.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -140,11 +142,21 @@ class TensorParallel(OneDevice):
             self.all_reduces += 1
         return y
 
-    def reduces_per_dispatch(self, n_layers: int) -> int:
-        """The all-reduces of one dispatch over ``n_layers`` layers:
-        2·L + 2 where every dimension is sharded."""
-        return (n_layers * (self.heads_split + self.ffn_split)
-                + 2 * self.vocab_split)
+    def reduces_per_dispatch(self, n_layers: int, *, steps: int = 1,
+                             gamma: int = 0,
+                             draft_layers: Optional[int] = None) -> int:
+        """The all-reduces of one dispatch over ``n_layers`` layers: 2·L + 2
+        a pass where every dimension is sharded. A committed horizon runs
+        ``steps`` passes; a speculative dispatch of ``steps`` rounds runs
+        each round's verify pass plus ``gamma`` draft passes, which reduce
+        like a pass over ``draft_layers`` layers for a draft sharded like
+        the target (``TruncatedSelfDraft``) and not at all for a replicated
+        one (``draft_layers=None``: ``SmallModelDraft``)."""
+        def one_pass(layers: int) -> int:
+            return (layers * (self.heads_split + self.ffn_split)
+                    + 2 * self.vocab_split)
+        draft = 0 if draft_layers is None else gamma * one_pass(draft_layers)
+        return steps * (one_pass(n_layers) + draft)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` from model rank 0 to every rank of the group, in place."""

@@ -50,12 +50,14 @@ the global page ids every rank indexes); for each dispatch it broadcasts
 one step message — the mode, the bucket key and the packed int32 buffer of
 its one host→device copy — and ranks 1 and up replay it in
 ``serve_worker()`` until rank 0's ``stop_workers()``. Covered: the fused
-and sequential modes, fp32 / int8 / fp8-e4m3 KV, dense and MoE (``exact``:
+and sequential modes, committed multi-step decode and speculative decode
+(``execute_multi``; a ``TruncatedSelfDraft`` sharded like the target, a
+``SmallModelDraft`` replicated on every rank, its backfill chunks in the
+step message too), fp32 / int8 / fp8-e4m3 KV, dense and MoE (``exact``:
 each rank's experts weighted by the global router's gates; ``capacity``:
 the dispatch from the replicated router, B4 over the rank's experts).
 Refused under a mesh (``NotImplementedError``, ROADMAP A13b): a data axis
-above 1, ``execute_multi`` and speculative decode, ``attach_cache``, and
-KV migration.
+above 1, ``attach_cache``, and KV migration.
 
 The SSM and hybrid families are refused as the JAX executor refuses them:
 they run through ``models.lm.DecoderLM``.
@@ -186,8 +188,10 @@ def mesh_refusal(what: str) -> NotImplementedError:
 
 
 # the step message rank 0 broadcasts under a mesh: an int64 header (the
-# op and its bucket key), then the dispatch's packed int32 buffer
-_STOP, _FUSED, _CHUNK, _DECODE = range(4)
+# op and its bucket key), then the dispatch's packed int32 buffer. _MULTI
+# is a committed horizon, _SPEC a speculative dispatch, _DRAFT a
+# replicated draft's backfill chunk
+_STOP, _FUSED, _CHUNK, _DECODE, _MULTI, _SPEC, _DRAFT = range(7)
 _HEADER = 5
 
 
@@ -714,8 +718,8 @@ class PagedTransformerExecutor:
             off += n
         return flat, views
 
-    def _to_device(self, flat: np.ndarray, views: dict, op: int = _STOP,
-                   key: tuple = ()) -> dict:
+    def _to_device(self, flat: np.ndarray, views: dict, op: int,
+                   key: tuple) -> dict:
         """One host→device copy of the staging buffer, cut like ``views``.
         Under a mesh the buffer then goes to every rank, after a header
         naming the dispatch (``op``) and its bucket ``key``: the builders
@@ -723,19 +727,9 @@ class PagedTransformerExecutor:
         which the other ranks cut it alike."""
         buf = torch.from_numpy(flat).to(self.device)
         if self.tp is not None:
-            if op == _STOP:
-                raise ValueError("a dispatch under a mesh names its op")
             self._send_header(op, key)
             self.tp.broadcast(buf)
         return self._cut(buf, {name: a.shape for name, a in views.items()})
-
-    def _stage(self, arrays: dict) -> dict:
-        """Named int32 arrays → device tensors, in one host→device copy
-        (a path no mesh runs)."""
-        flat = np.concatenate([np.asarray(a, np.int32).ravel()
-                               for a in arrays.values()])
-        views = {k: np.asarray(a) for k, a in arrays.items()}
-        return self._to_device(flat, views)
 
     # ------------------------------------------------------------------
     # the step message under a mesh (DESIGN.md §17)
@@ -744,25 +738,32 @@ class PagedTransformerExecutor:
     def _op_shapes(self, op: int, key: tuple) -> dict:
         """The named int32 arrays, in staging order, of a dispatch of kind
         ``op`` at bucket ``key``: ``_FUSED`` (t, s, tq, pg buckets),
-        ``_CHUNK`` (padded tokens, real tokens) or ``_DECODE`` (rows). The
-        one definition of the step message's layout: rank 0 stages into
-        it, the other ranks cut the broadcast by it."""
-        quant = self.qspec is not None
+        ``_CHUNK`` and ``_DRAFT`` (padded tokens, real tokens),
+        ``_DECODE`` (rows), ``_MULTI`` (rows, horizon) or ``_SPEC`` (rows,
+        rounds, γ, force_reject). The one definition of the step message's
+        layout: rank 0 stages into it, the other ranks cut the broadcast by
+        it. ``_MULTI`` and ``_SPEC`` lay out ``_DECODE``'s rows, ``_SPEC``
+        with each row's emission budget (``max_emit``) after them;
+        ``_DRAFT`` is ``_CHUNK`` without scale tables (a draft's own pools
+        are fp32)."""
+        quant = self.qspec is not None and op != _DRAFT
         if op == _FUSED:
             return self._fused_shapes(*key[:4])
-        if op == _CHUNK:
+        if op in (_CHUNK, _DRAFT):
             n_tok = key[0]
             shapes = {"tokens": (n_tok,), "positions": (n_tok,),
                       "table": (self.max_pages,), "ctx": (1,)}
             if quant:
                 shapes["stable"] = (self.max_pages,)
             return shapes
-        if op == _DECODE:
+        if op in (_DECODE, _MULTI, _SPEC):
             bsz = key[0]
             shapes = {"tokens": (bsz,), "positions": (bsz,), "ctx": (bsz,),
                       "tables": (bsz, self.max_pages)}
             if quant:
                 shapes["stables"] = (bsz, self.max_pages)
+            if op == _SPEC:
+                shapes["max_emit"] = (bsz,)
             return shapes
         raise ValueError(f"unknown op {op}")
 
@@ -781,7 +782,8 @@ class PagedTransformerExecutor:
     def serve_worker(self) -> int:
         """Ranks 1 and up under a mesh: run each dispatch rank 0 broadcasts
         (its collectives pair with rank 0's) until its stop message.
-        Returns the dispatches run."""
+        Returns the dispatches run; a draft's backfill chunks count in the
+        draft's ``n_backfill_dispatches``, as on rank 0."""
         if self.tp is None or self.tp.rank == 0:
             raise ValueError("serve_worker runs on ranks 1 and up of a mesh")
         n = 0
@@ -795,13 +797,21 @@ class PagedTransformerExecutor:
             buf = torch.empty(sum(math.prod(s) for s in shapes.values()),
                               dtype=torch.int32, device=self.device)
             st = self._cut(self.tp.broadcast(buf), shapes)
+            if op == _DRAFT:
+                self.draft.backfill(st, key[1])
+                continue
             self.n_dispatches += 1
             if op == _FUSED:
                 self._fused_step(st, key[0])
             elif op == _CHUNK:
                 self._chunk_step(st, key[1])
-            else:
+            elif op == _DECODE:
                 self._decode_step(st)
+            elif op == _MULTI:
+                self._multi_decode_step(st, key[1])
+            else:
+                self._spec_multi_step(st, rounds=key[1], gamma=key[2],
+                                      force_reject=bool(key[3]))
             n += 1
 
     def _table(self, req_id: int) -> np.ndarray:
@@ -818,17 +828,15 @@ class PagedTransformerExecutor:
         stbl = self.alloc.scale_table(req_id)
         return np.asarray(stbl + [0] * (self.max_pages - len(stbl)), np.int32)
 
-    def _stage_decode(self, ids: list, requests, tokens: list,
-                      bsz: int, **extra) -> dict:
-        """A decode batch padded to ``bsz`` rows, laid out by
-        ``_op_shapes(_DECODE)``: tokens (the fed-back ones), positions,
-        ctx (B,), tables (and when quantized stables) (B, max_pages), plus
-        ``extra`` (B,) columns whose pad rows are 0 (paths no mesh runs).
-        Pad rows read and write only the trash page and its scale page
-        (table 0, position 0, context 1)."""
-        shapes = self._op_shapes(_DECODE, (bsz,))
-        shapes.update({name: (bsz,) for name in extra})
-        flat, a = self._alloc(shapes)
+    def _stage_decode(self, ids: list, requests, tokens: list, op: int,
+                      key: tuple, max_emit: Optional[list] = None) -> dict:
+        """A decode batch padded to ``key[0]`` rows, laid out by
+        ``_op_shapes(op, key)`` (``_DECODE``, ``_MULTI`` or ``_SPEC``):
+        tokens (the fed-back ones), positions, ctx (B,), tables (and when
+        quantized stables) (B, max_pages), and for ``_SPEC`` ``max_emit``
+        (B,), 0 on pad rows. Pad rows read and write only the trash page
+        and its scale page (table 0, position 0, context 1)."""
+        flat, a = self._alloc(self._op_shapes(op, key))
         a["ctx"][:] = 1
         for i, rid in enumerate(ids):
             req = requests[rid]
@@ -840,9 +848,9 @@ class PagedTransformerExecutor:
             a["tables"][i] = self._table(rid)
             if self.qspec is not None:
                 a["stables"][i] = self._stable(rid)
-        for name, col in extra.items():
-            a[name][:len(col)] = col
-        return self._to_device(flat, a, _STOP if extra else _DECODE, (bsz,))
+        if max_emit is not None:
+            a["max_emit"][:len(max_emit)] = max_emit
+        return self._to_device(flat, a, op, key)
 
     @staticmethod
     def _fed_back(req) -> int:
@@ -854,13 +862,14 @@ class PagedTransformerExecutor:
 
     def set_draft(self, draft) -> None:
         """Install a draft adapter (``spec_decode``); enables
-        ``execute_multi(speculate=γ)`` (not under a mesh). On a MoE target a
+        ``execute_multi(speculate=γ)``. On a MoE target a
         ``TruncatedSelfDraft`` runs the target's own FFN under the
         executor's ``moe_impl`` (kernel B4 under ``"capacity"``), as the JAX
         draft runs the target's ``_forward``; a ``SmallModelDraft`` asserts
-        a dense draft arch in its constructor."""
-        if self.tp is not None:
-            raise mesh_refusal("speculative decode")
+        a dense draft arch in its constructor. Under a mesh every rank
+        installs its own draft: a ``TruncatedSelfDraft`` runs the rank's
+        shard of the target's first layers, a ``SmallModelDraft`` the
+        whole draft model on every rank."""
         draft.bind(self)
         self.draft = draft
 
@@ -887,9 +896,12 @@ class PagedTransformerExecutor:
         ``capture_logits`` is not supported on any multi-step path — the
         per-step logits never leave the device — and raises loudly rather
         than silently returning stale ``last_logits``.
+
+        Under a mesh rank 0 reserves and stages, and the step message
+        (``_MULTI`` or ``_SPEC``) runs the same loop on every rank; the
+        head's all-reduce gives each rank the full-vocab logits, so every
+        rank feeds back the same argmax and accepts the same drafts.
         """
-        if self.tp is not None:
-            raise mesh_refusal("committed multi-step decode (execute_multi)")
         if self.capture_logits:
             raise ValueError(
                 "capture_logits is not supported on the multi-step/"
@@ -914,7 +926,7 @@ class PagedTransformerExecutor:
         bsz = _bucket(len(ids), 4)
         st = self._stage_decode(ids, requests,
                                 [self._fed_back(requests[r]) for r in ids],
-                                bsz)
+                                _MULTI, (bsz, horizon))
         self.n_dispatches += 1
         self.compile_keys.add(("multi", bsz, horizon))
         toks_np = self._multi_decode_step(st, horizon).cpu().numpy()
@@ -963,7 +975,8 @@ class PagedTransformerExecutor:
         self.draft.prepare(ids, requests)
         bsz = _bucket(len(ids), 4)
         st = self._stage_decode(
-            ids, requests, [self._fed_back(requests[r]) for r in ids], bsz,
+            ids, requests, [self._fed_back(requests[r]) for r in ids], _SPEC,
+            (bsz, rounds, gamma, int(self.spec_force_reject)),
             # padded rows never emit
             max_emit=[requests[r].max_new_tokens - requests[r].generated
                       for r in ids])
@@ -1189,7 +1202,7 @@ class PagedTransformerExecutor:
             toks = [requests[r].generated_tokens[-1]
                     if requests[r].generated_tokens else emitted.get(r, 0)
                     for r in ids]
-            st = self._stage_decode(ids, requests, toks, bsz)
+            st = self._stage_decode(ids, requests, toks, _DECODE, (bsz,))
             self.n_dispatches += 1
             self.compile_keys.add(("decode", bsz))
             logits = self._decode_step(st)

@@ -187,3 +187,20 @@ class ModelTimedExecutor:
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
+
+
+class ModelTimedMultiExecutor(ModelTimedExecutor):
+    """``ModelTimedExecutor`` that also puts committed horizons and
+    speculative rounds on the model clock: each internal step
+    ``execute_multi`` reports takes the cost model's time for its (new
+    tokens, context) in place of its share of the measured dispatch. The
+    JAX package's ``ModelTimedExecutor`` leaves those on the wall clock, so
+    a run compared with the JAX package keeps the parent class."""
+
+    def execute_multi(self, plan: BatchPlan, requests, now, horizon, *,
+                      speculate: int = 0):
+        steps, emitted = self._inner.execute_multi(plan, requests, now,
+                                                   horizon,
+                                                   speculate=speculate)
+        return [(self._model.step_time(nt, ctx) if nt else 1e-4, nt, ctx)
+                for _, nt, ctx in steps], emitted

@@ -20,7 +20,8 @@ round, no draft state is threaded through the round:
   are (DESIGN.md §14); that is safe because the verify pass rewrites the
   same (layer, position) slots before any attention reads them, and
   rejected positions are overwritten before any later pass can attend to
-  them.
+  them. Under a mesh it is sharded like the target (the rank's heads and
+  FFN share, with the target's all-reduces).
 * ``SmallModelDraft`` — a separate (smaller) model with its OWN fp32 page
   pools, whatever the target's ``kv_dtype`` (the JAX package's
   ``draft_forward`` is the target's forward "minus quantization"), indexed
@@ -28,7 +29,10 @@ round, no draft state is threaded through the round:
   are shared verbatim. It keeps a host-side coverage map and
   backfills draft-KV for any context it has not seen (admission after the
   target prefilled, rollback, migration) with a chunked prefill pass before
-  the speculative dispatch.
+  the speculative dispatch. Under a mesh it is replicated, unsharded, on
+  every rank (as the JAX draft runs): rank 0 keeps the coverage map and
+  broadcasts each backfill chunk in the step message (``_DRAFT``), so
+  every rank's draft pools hold the same rows; it runs no collective.
 
 ``AcceptanceEWMA`` is the capacity layer's pessimistic acceptance estimator:
 cold start sits at the floor, measured collapses are adopted *immediately*
@@ -46,7 +50,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..models.module import rmsnorm
 from ..models.weights import params_to
-from .executor import _bucket, layer_views, paged_forward
+from .executor import _DRAFT, _bucket, layer_views, paged_forward
 
 
 class AcceptanceEWMA:
@@ -136,7 +140,8 @@ class SmallModelDraft:
     how many leading positions of each request have draft-KV; ``prepare``
     backfills gaps with chunked draft-prefill dispatches (counted in
     ``n_backfill_dispatches``, NOT the executor's ``n_dispatches`` — the
-    one-dispatch-per-step serving invariant is about the target plane).
+    one-dispatch-per-step serving invariant is about the target plane),
+    which ranks 1 and up of a mesh replay from the step message.
     Its forward is the executor's ``paged_forward`` over its own pools and
     weights (the JAX package's ``draft_forward``).
 
@@ -188,10 +193,12 @@ class SmallModelDraft:
         return self._logits(x[:, 0])
 
     @torch.no_grad()
-    def _prefill_step(self, st: dict, n_valid: int) -> None:
-        """One draft-prefill chunk (B=1) into the draft pools: ``st`` as
-        the executor's sequential chunk — tokens/positions (n_tok,) padded,
-        table (max_pages,), ctx (1,)."""
+    def backfill(self, st: dict, n_valid: int) -> None:
+        """One draft-prefill chunk (B=1) into the draft pools: ``st`` laid
+        out by the executor's ``_op_shapes(_DRAFT)`` — tokens/positions
+        (n_tok,) padded, table (max_pages,), ctx (1,). Every rank of a
+        mesh runs it (ranks 1 and up from the step message)."""
+        self.n_backfill_dispatches += 1
         n_tok = st["tokens"].shape[0]
         x = self.params["embed"][st["tokens"].long()][None]
         valid = (torch.arange(n_tok, device=x.device) < n_valid)[None]
@@ -217,13 +224,14 @@ class SmallModelDraft:
             table = ex._table(rid)
             while have < need:
                 chunk = stream[have:need]
-                n_tok = _bucket(len(chunk), 16)
-                st = ex._stage({
-                    "tokens": chunk + [0] * (n_tok - len(chunk)),
-                    "positions": np.arange(have, have + n_tok),
-                    "table": table, "ctx": [have + len(chunk)]})
-                self.n_backfill_dispatches += 1
-                self._prefill_step(st, len(chunk))
+                key = (_bucket(len(chunk), 16), len(chunk))
+                flat, a = ex._alloc(ex._op_shapes(_DRAFT, key))
+                a["tokens"][:len(chunk)] = chunk
+                a["positions"][:] = np.arange(have, have + key[0])
+                a["table"][:] = table
+                a["ctx"][0] = have + len(chunk)
+                self.backfill(ex._to_device(flat, a, _DRAFT, key),
+                              len(chunk))
                 have += len(chunk)
             self._covered[rid] = need
 

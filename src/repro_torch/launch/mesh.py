@@ -13,8 +13,10 @@ and opens no process group.
 
 ``spawn(fn, world, backend, *args)`` runs ``fn(rank, world, *args)`` in
 ``world`` fresh processes (the ``spawn`` start method) after
-``torch.distributed.init_process_group(backend, ...)`` on a local TCP
-address, and returns the ranks' results in rank order. The caller names
+``torch.distributed.init_process_group(backend, ...)``, and returns the
+ranks' results in rank order. The ranks rendezvous through a file store
+in a fresh temporary directory, removed afterwards: no port is taken, so
+no other process can take it first. The caller names
 the backend (``"nccl"`` for one card a rank, ``"gloo"`` for ranks that
 share a card or run on the CPU); nothing switches backend when one fails.
 A rank that raises fails the run: ``spawn`` stops every other rank and
@@ -25,8 +27,10 @@ from __future__ import annotations
 import itertools
 import math
 import multiprocessing
+import os
 import queue
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from typing import Callable, Optional
@@ -136,12 +140,6 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:
 # one process per rank
 # --------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn, rank: int, world: int, backend: str, init_method: str,
                inbox, results) -> None:
     """A rank's process: take ``fn``'s arguments from ``inbox``, join the
@@ -174,17 +172,18 @@ def spawn(fn: Callable, world: int, backend: str, *args,
     # that dies before reading its start-up pipe would block the parent's
     # write of a large one forever
     inbox, results = ctx.Queue(), ctx.Queue()
-    init = f"tcp://127.0.0.1:{_free_port()}"
+    store = tempfile.mkdtemp(prefix="spawn-")
+    init = "file://" + os.path.join(store, "rendezvous")
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(fn, r, world, backend, init, inbox, results))
              for r in range(world)]
-    for p in procs:
-        p.start()
-    for _ in procs:
-        inbox.put(args)
     out: dict = {}
     deadline = time.monotonic() + timeout
     try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            inbox.put(args)
         while len(out) < world:
             try:
                 rank, ok, value = results.get(timeout=1.0)
@@ -214,4 +213,5 @@ def spawn(fn: Callable, world: int, backend: str, *args,
         for q in (inbox, results):
             q.cancel_join_thread()      # a dead rank left its copy unread
             q.close()
+        shutil.rmtree(store, ignore_errors=True)
     return [out[r] for r in range(world)]

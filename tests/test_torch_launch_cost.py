@@ -24,7 +24,6 @@ of host devices for a decode and a train cell. Then the ideas of
 ``tests/test_hlo_analysis.py``, the peak of live storages, collectives,
 and B4 and B5 on ``meta`` tensors against the CPU.
 """
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -217,15 +216,10 @@ def test_peak_counts_live_storages():
     assert r["temp_bytes"] == 0
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def test_collectives_are_counted():
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", world_size=1, rank=0)
+def test_collectives_are_counted(tmp_path):
+    # a file store: no port that a parallel worker could take first
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
     try:
         x = torch.ones(64)
         r = ca.analyze(lambda t: dist.all_reduce(t), x)

@@ -11,7 +11,8 @@ Under ``capacity`` the port's single-device fused run is the reference on
 the same plans (capacity drops follow the packing). Also pinned: one
 dispatch a step, 2·L + 2 all-reduces a dispatch on every rank, scheduler
 decisions byte-equal across TP 1, 2 and 4 on the model clock, the
-replicated-KV guard, and the refusals of ROADMAP A13b.
+replicated-KV guard, and the refusals of ROADMAP A13b. The multi-step and
+speculative paths under a mesh are ``tests/test_torch_tp_decode.py``'s.
 
 ``spawn`` starts each TP degree once (2, then 4 ranks) and every case runs
 inside it (``torch_tp_ranks.run_cases``); the ranks import no JAX and get
@@ -217,10 +218,11 @@ def test_kv_heads_a_rank(runs):
 
 @pytest.mark.parametrize("tp", sorted(RUNS))
 def test_mesh_refusals(runs, tp):
-    """ROADMAP A13b's paths raise ``NotImplementedError`` naming it:
-    multi-step and speculative decode, the prefix cache, KV migration
-    both ways, and (at 4 ranks) a data axis of 2."""
-    want = {"execute_multi", "set_draft", "attach_cache", "capture_kv",
+    """ROADMAP A13b's paths raise ``NotImplementedError`` naming it: the
+    prefix cache, KV migration both ways, and (at 4 ranks) a data axis of
+    2. Multi-step and speculative decode run under a mesh
+    (``tests/test_torch_tp_decode.py``)."""
+    want = {"attach_cache", "capture_kv",
             "install_kv_pages"} | ({"data_axis"} if tp == 4 else set())
     for rec in runs[tp]["refusals"]:
         got = rec["refusals"]
